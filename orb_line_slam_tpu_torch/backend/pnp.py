@@ -3,15 +3,23 @@
 Port of ``orb_line_slam_tpu/backend/pnp.py:22-99`` (``_epnp_single`` and
 ``solve_pnp_ransac``) with ``horn_alignment`` from
 ``backend/sim3_solver.py:22-45``.  All hypotheses are solved as one
-batch.  The JAX package draws the hypotheses with
-``jax.random.choice(key, ...)``, which torch cannot reproduce; here the
-draw is ``torch.multinomial`` from an explicit ``torch.Generator``, or
-the caller passes the indices (``sample_idx``) so that tests can feed
-both packages the same hypotheses.
+batch.  The hypotheses are the JAX package's own draw,
+``jax.random.choice(PRNGKey(seed), N, (n_hyps, sample_size),
+replace=True, p=valid / n_valid)``, index for index (``draw_hypotheses``):
+the uniforms come from threefry-2x32 as ``jax.random.uniform`` makes
+them, and the inverse-CDF search runs on a cumulative sum associated as
+XLA's CPU backend associates ``jnp.cumsum`` (sequential runs of 16,
+then the same scan over the run totals).  Which rows path B's 128
+hypotheses take decides, on a weakly supported frame, which of two pose
+basins the solve falls into, so a different draw is a different
+trajectory.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..config import CameraIntrinsics
@@ -82,30 +90,85 @@ def epnp(pw: torch.Tensor, uv: torch.Tensor, cam: CameraIntrinsics):
     return R, t
 
 
+def _threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
+    """Threefry-2x32 (20 rounds) on uint32 counter pairs, as
+    ``jax._src.prng._threefry2x32_lowering`` computes it."""
+    rot = ((13, 15, 26, 6), (17, 29, 16, 24))
+    ks = (np.uint32(k1), np.uint32(k2), np.uint32(k1) ^ np.uint32(k2) ^ np.uint32(0x1BD11BDA))
+    x1, x2 = x1 + ks[0], x2 + ks[1]
+    for i in range(5):
+        for r in rot[i % 2]:
+            x1 = x1 + x2
+            x2 = x1 ^ ((x2 << np.uint32(r)) | (x2 >> np.uint32(32 - r)))
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x1, x2
+
+
+@functools.lru_cache(maxsize=64)
+def jax_uniform(seed: int, n: int) -> np.ndarray:
+    """``jax.random.uniform(jax.random.PRNGKey(seed), (n,))`` bit for bit
+    (threefry keys, partitionable counters; float32 in [0, 1))."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    b1, b2 = _threefry2x32(s >> 32, s & 0xFFFFFFFF, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    bits = (b1 ^ b2) >> np.uint32(9) | np.uint32(0x3F800000)
+    u = bits.view(np.float32) - np.float32(1.0)
+    u.setflags(write=False)
+    return u
+
+
+@functools.lru_cache(maxsize=16)
+def _uniform_on(seed: int, n: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(jax_uniform(seed, n).copy()).to(device)
+
+
+def xla_cumsum(x: torch.Tensor, run: int = 16) -> torch.Tensor:
+    """Inclusive float32 cumulative sum of a 1-D tensor, associated as
+    XLA's CPU backend evaluates ``jnp.cumsum``: sequential sums within
+    runs of ``run`` elements, plus the exclusive scan (the same way) of
+    the run totals.  ``torch.cumsum`` associates differently on either
+    device."""
+    n = x.shape[0]
+    m = -(-n // run)
+    xs = torch.nn.functional.pad(x, (0, m * run - n)).reshape(m, run)
+    cols = [xs[:, 0]]
+    for k in range(1, run if m > 1 else n):
+        cols.append(cols[-1] + xs[:, k])
+    loc = torch.stack(cols, dim=1)
+    if m == 1:
+        return loc[0, :n]
+    tot = xla_cumsum(loc[:, -1], run)
+    carry = torch.cat([tot.new_zeros(1), tot[:-1]])
+    return (loc + carry[:, None]).reshape(-1)[:n]
+
+
+def draw_hypotheses(valid: torch.Tensor, seed: int, n_hyps: int = 128, sample_size: int = 6) -> torch.Tensor:
+    """Row indices [n_hyps, sample_size] of ``jax.random.choice(
+    PRNGKey(seed), N, (n_hyps, sample_size), replace=True,
+    p=valid / max(n_valid, 1))``.  With no valid row every index is 0."""
+    p = valid.to(torch.float32)
+    p = p / torch.clamp(p.sum(), min=1.0)
+    cum = xla_cumsum(p)
+    u = _uniform_on(int(seed), n_hyps * sample_size, str(valid.device))
+    idx = torch.searchsorted(cum, cum[-1] * (1.0 - u))
+    return idx.reshape(n_hyps, sample_size)
+
+
 def solve_pnp_ransac(
     points_w: torch.Tensor,   # [N, 3]
     uv: torch.Tensor,         # [N, 2]
     valid: torch.Tensor,      # [N]
-    generator: torch.Generator | None,
+    seed: int,
     cam: CameraIntrinsics,
     sigma2: torch.Tensor,     # [N] per-point sigma^2 (octave-scaled)
     n_hyps: int = 128,
     sample_size: int = 6,
-    sample_idx: torch.Tensor | None = None,
 ):
     """Batched RANSAC EPnP. Returns (R, t, inlier_mask, n_inliers).
 
-    Hypotheses sample valid rows with replacement; ``sample_idx``
-    [n_hyps, sample_size] overrides the draw (``generator`` is then
-    unused)."""
-    if sample_idx is None:
-        p = valid.to(torch.float32)
-        # No valid row: draw uniformly; every hypothesis then scores 0.
-        p = torch.where(p.sum() > 0, p, torch.ones_like(p))
-        sample_idx = torch.multinomial(
-            p, n_hyps * sample_size, replacement=True, generator=generator
-        ).reshape(n_hyps, sample_size)
-    idx = sample_idx.long()
+    The hypotheses sample valid rows with replacement, drawn as the JAX
+    package draws them from ``PRNGKey(seed)`` (``draw_hypotheses``)."""
+    idx = draw_hypotheses(valid, seed, n_hyps, sample_size)
     Rs, ts = epnp(points_w[idx], uv[idx], cam)
     pc = torch.einsum("hij,nj->hni", Rs, points_w) + ts[:, None, :]
     err = torch.sum((project(cam, pc) - uv[None]) ** 2, dim=-1)

@@ -1,13 +1,16 @@
 """Motion-only bundle adjustment (the per-frame pose solve).
 
-Port of ``orb_line_slam_tpu/backend/pose_opt.py:57-155`` for points
-(lines are off on this slice): ``rounds`` rounds of ``iters`` LM
-iterations on one SE3 vertex, Huber on the first two rounds, chi2
-gating (5.991 mono / 7.815 stereo) after every round — the fixed
-schedule of the reference's PoseOptimization.  The 6x6 normal equations
-come from the analytic Jacobians (``residuals.py``) and are solved with
-``solve_ex``, which does not synchronize with the host; a rejected step
-keeps the pose, as ``jnp.where`` does in the JAX scan.
+Port of ``orb_line_slam_tpu/backend/pose_opt.py:34-155``: ``rounds``
+rounds of ``iters`` LM iterations on one SE3 vertex with point edges and
+optional line edges, Huber on the first two rounds, chi2 gating after
+every round (points 5.991 mono / 7.815 stereo, lines 5.991) — the fixed
+schedule of the reference's PoseOptimization.  As in the JAX code, line
+terms are Huber-weighted in H and g but enter the step's error
+comparison unweighted.  The 6x6 normal equations come from the analytic
+Jacobians (``residuals.py``) and are solved with ``solve_ex``, which
+does not synchronize with the host; a rejected step keeps the pose, as
+``jnp.where`` does in the JAX scan.  ``n_inliers`` counts points and
+lines together.
 """
 
 from __future__ import annotations
@@ -18,15 +21,18 @@ import torch
 
 from ..config import CameraIntrinsics
 from ..geometry.se3 import se3_compose, se3_exp
-from .residuals import inv_level_sigma2, point_residual, point_residual_and_jacobians
+from .residuals import (
+    inv_level_sigma2, line_residual_and_jacobian, point_residual, point_residual_and_jacobians,
+)
 from .robust import CHI2_MONO, CHI2_STEREO, huber_weight
 
 
 class PoseOptResult(NamedTuple):
     R: torch.Tensor
     t: torch.Tensor
-    inliers: torch.Tensor    # bool [M]
-    n_inliers: torch.Tensor  # int32 scalar
+    inliers: torch.Tensor       # bool [M] point inliers
+    line_inliers: torch.Tensor  # bool [L]
+    n_inliers: torch.Tensor     # int32 scalar (points + lines)
 
 
 def pose_optimize(
@@ -38,21 +44,33 @@ def pose_optimize(
     valid: torch.Tensor,      # [M]
     cam: CameraIntrinsics,
     scale_factor: float = 1.2,
+    line_start_w: torch.Tensor | None = None,  # [L, 3]
+    line_end_w: torch.Tensor | None = None,    # [L, 3]
+    line_obs: torch.Tensor | None = None,      # [L, 3] (a, b, c) normalised
+    line_octave: torch.Tensor | None = None,   # [L]
+    line_valid: torch.Tensor | None = None,    # [L]
     rounds: int = 4,
     iters: int = 10,
 ) -> PoseOptResult:
+    dev, dt_ = points_w.device, points_w.dtype
+    has_lines = line_start_w is not None
     is_stereo = obs_uvur[:, 2] > 0
     p_info = inv_level_sigma2(octave, scale_factor)
     chi2_th = torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
-    dev, dt_ = points_w.device, points_w.dtype
+    if has_lines:
+        l_info = inv_level_sigma2(line_octave, scale_factor)
     eye6 = torch.eye(6, dtype=dt_, device=dev)
     zero = torch.zeros((), dtype=dt_, device=dev)
 
     def chi2(R, t):
         r = point_residual(cam, R, t, points_w, obs_uvur, is_stereo)
-        return torch.sum(r * r, dim=-1) * p_info
+        c_p = torch.sum(r * r, dim=-1) * p_info
+        if not has_lines:
+            return c_p, None
+        rl, _ = line_residual_and_jacobian(cam, R, t, line_start_w, line_end_w, line_obs, jacobian=False)
+        return c_p, torch.sum(rl * rl, dim=-1) * l_info
 
-    def lm_round(R, t, p_in, use_huber: bool):
+    def lm_round(R, t, p_in, l_in, use_huber: bool):
         lam = torch.tensor(1e-3, dtype=dt_, device=dev)
         for _ in range(iters):
             r, Jc, _ = point_residual_and_jacobians(cam, R, t, points_w, obs_uvur, is_stereo)
@@ -63,13 +81,24 @@ def pose_optimize(
             H = torch.einsum("mid,mdj->ij", JtW, Jc)
             g = torch.einsum("mid,md->i", JtW, r)
             err0 = torch.sum(torch.where(p_in, c * hw, zero))
+            if has_lines:
+                rl, Jl = line_residual_and_jacobian(cam, R, t, line_start_w, line_end_w, line_obs)
+                cl = torch.sum(rl * rl, dim=-1) * l_info
+                wl = huber_weight(cl, CHI2_MONO) * l_info if use_huber else l_info
+                wl = torch.where(l_in, wl, zero)
+                JltW = Jl.transpose(-1, -2) * wl[:, None, None]    # [L, 6, 2]
+                H = H + torch.einsum("lid,ldj->ij", JltW, Jl)
+                g = g + torch.einsum("lid,ld->i", JltW, rl)
+                err0 = err0 + torch.sum(torch.where(l_in, cl, zero))
             Hd = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye6
             xi = -torch.linalg.solve_ex(Hd, g)[0]
             dR, dt = se3_exp(xi)
             R2, t2 = se3_compose(dR, dt, R, t)
-            c2 = chi2(R2, t2)
+            c2, cl2 = chi2(R2, t2)
             hw2 = huber_weight(c2, CHI2_STEREO) if use_huber else torch.ones_like(c2)
             err1 = torch.sum(torch.where(p_in, c2 * hw2, zero))
+            if has_lines:
+                err1 = err1 + torch.sum(torch.where(l_in, cl2, zero))
             accept = err1 < err0
             R = torch.where(accept, R2, R)
             t = torch.where(accept, t2, t)
@@ -78,7 +107,12 @@ def pose_optimize(
 
     R, t = R0, t0
     p_in = valid
+    l_in = line_valid if has_lines else torch.zeros(8, dtype=torch.bool, device=dev)
     for rnd in range(rounds):
-        R, t = lm_round(R, t, p_in, use_huber=(rnd < 2))
-        p_in = valid & (chi2(R, t) <= chi2_th)
-    return PoseOptResult(R=R, t=t, inliers=p_in, n_inliers=p_in.sum().to(torch.int32))
+        R, t = lm_round(R, t, p_in, l_in, use_huber=(rnd < 2))
+        c_p, c_l = chi2(R, t)
+        p_in = valid & (c_p <= chi2_th)
+        if has_lines:
+            l_in = line_valid & (c_l <= CHI2_MONO)
+    n_in = p_in.sum() + l_in.sum()
+    return PoseOptResult(R=R, t=t, inliers=p_in, line_inliers=l_in, n_inliers=n_in.to(torch.int32))

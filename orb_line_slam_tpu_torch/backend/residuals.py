@@ -1,8 +1,10 @@
-"""Point reprojection residuals and their analytic Jacobians.
+"""Point and line reprojection residuals and their analytic Jacobians.
 
-Port of ``orb_line_slam_tpu/backend/residuals.py:27-41`` (the unified
-mono/stereo point residual (du, dv, duR), duR zeroed for mono) and of
-the Jacobians the JAX package takes with ``jax.jacfwd`` at a zero SE3
+Port of ``orb_line_slam_tpu/backend/residuals.py:27-78`` (the unified
+mono/stereo point residual (du, dv, duR), duR zeroed for mono; the line
+residual, the signed distances of a 3D segment's two projected
+endpoints to an observed 2D line; ``line_obs_coeffs``) and of the
+Jacobians the JAX package takes with ``jax.jacfwd`` at a zero SE3
 tangent (``residuals.py:81-97``, ``local_ba.py:47-66``), written out:
 with xc = R p + t and the left-multiplicative update exp(xi) * (R, t),
 d xc / d xi = [I, -hat(xc)] and d xc / d p = R.
@@ -47,3 +49,37 @@ def point_residual_and_jacobians(cam: CameraIntrinsics, R, t, xyz_w, obs_uvur, i
     Jc = Jx @ dxi
     Jp = Jx @ R
     return r, Jc, Jp
+
+
+def line_obs_coeffs(p1_uv: torch.Tensor, p2_uv: torch.Tensor) -> torch.Tensor:
+    """Normalised infinite-line coefficients (a, b, c), a^2 + b^2 = 1,
+    through two 2D endpoints: the observation of a line feature."""
+    a = p1_uv[..., 1] - p2_uv[..., 1]
+    b = p2_uv[..., 0] - p1_uv[..., 0]
+    c = p1_uv[..., 0] * p2_uv[..., 1] - p2_uv[..., 0] * p1_uv[..., 1]
+    n = torch.sqrt(a * a + b * b + 1e-12)
+    return torch.stack([a / n, b / n, c / n], dim=-1)
+
+
+def _px(cam: CameraIntrinsics, xc: torch.Tensor):
+    z = torch.where(torch.abs(xc[..., 2]) < 1e-9, torch.full_like(xc[..., 2], 1e-9), xc[..., 2])
+    return cam.fx * xc[..., 0] / z + cam.cx, cam.fy * xc[..., 1] / z + cam.cy, z
+
+
+def line_residual_and_jacobian(cam: CameraIntrinsics, R, t, p_start_w, p_end_w, obs_line,
+                               jacobian: bool = True):
+    """(r [..., 2], J [..., 2, 6]): signed distances a u + b v + c of the
+    projected start and end points to the observed line, and their
+    Jacobian w.r.t. the pose tangent [rho, phi] (J is None when
+    jacobian=False)."""
+    rows, jac = [], []
+    for p_w in (p_start_w, p_end_w):
+        xc = se3_apply(R, t, p_w)
+        u, v, z = _px(cam, xc)
+        rows.append(obs_line[..., 0] * u + obs_line[..., 1] * v + obs_line[..., 2])
+        if jacobian:
+            a, b = obs_line[..., 0] * cam.fx / z, obs_line[..., 1] * cam.fy / z
+            dxc = torch.stack([a, b, -(a * xc[..., 0] + b * xc[..., 1]) / z], dim=-1)   # d r / d xc
+            jac.append(torch.cat([dxc, torch.linalg.cross(xc, dxc)], dim=-1))           # dxc @ [I, -hat(xc)]
+    r = torch.stack(rows, dim=-1)
+    return r, (torch.stack(jac, dim=-2) if jacobian else None)

@@ -1,7 +1,7 @@
 """Carry configuration, frames and map state from the JAX package.
 
-The system has no weights: its state is configuration, frames and the
-map.  These pure functions take numpy input (or a JAX-package config,
+The system has no weights: its state is configuration, frames, line
+features and the map.  These pure functions take numpy input (or a JAX-package config,
 read by attribute, so nothing here imports jax) and build the port's
 objects, so that tests can start both packages from identical state.
 """
@@ -18,6 +18,7 @@ from .config import (
     CameraIntrinsics, LineConfig, MapConfig, OrbConfig, SlamConfig, TrackingConfig,
 )
 from .frontend.frame import Frame
+from .frontend.line_extractor import LineFeatures
 from .slam_map.map_store import MapStore
 
 
@@ -48,11 +49,22 @@ def config_from_jax(cfg) -> SlamConfig:
     )
 
 
+def _tuple_from_numpy(cls, d, device):
+    get = (lambda k: d[k]) if isinstance(d, dict) else (lambda k: getattr(d, k))
+    return cls(*(torch.from_numpy(np.array(get(k))).to(device) for k in cls._fields))
+
+
 def frame_from_numpy(d, device) -> Frame:
     """Frame on `device` from a dict (or any object with the fields as
     attributes) of numpy arrays in the JAX Frame's layout and dtypes."""
-    get = (lambda k: d[k]) if isinstance(d, dict) else (lambda k: getattr(d, k))
-    return Frame(*(torch.from_numpy(np.array(get(k))).to(device) for k in Frame._fields))
+    return _tuple_from_numpy(Frame, d, device)
+
+
+def line_features_from_numpy(d, device) -> LineFeatures:
+    """LineFeatures on `device` from a dict or object of numpy arrays in
+    the JAX LineFeatures' layout and dtypes (e.g. ``jax.device_get`` of
+    one)."""
+    return _tuple_from_numpy(LineFeatures, d, device)
 
 
 def map_store_from_numpy(store) -> MapStore:

@@ -6,10 +6,14 @@ point (and line) landmarks along a known trajectory, run the pipeline,
 assert ATE ~ 0.  Rendering is host-side numpy (test-only code, not
 part of the device compute path).  A copy of
 ``orb_line_slam_tpu/data/synthetic.py`` (which imports jax through
-``geometry.camera``), pointed at the port's ``config``; its three cv2
-calls (``resize`` linear and area, ``warpAffine`` linear) are written
-out in numpy below, so rendering needs neither jax nor OpenCV, and line
-landmarks are left out (the port is point-only).
+``geometry.camera``), pointed at the port's ``config``; its four cv2
+calls (``resize`` linear and area, ``warpAffine`` linear, and
+``line(..., 30, 2, LINE_8)`` for line landmarks) are written out in
+numpy below, so rendering needs neither jax nor OpenCV.  The thick-line
+rasteriser follows OpenCV's fixed-point ``ThickLine`` (a filled 16.16
+quad with ``Line2`` edges and plus-shaped end caps): pixel for pixel
+where a segment lies inside the image, within a pixel of it where a
+segment leaves the image (OpenCV's border clipping is not reproduced).
 
 Each 3D landmark carries a fixed random 5x5 texture patch so that ORB
 descriptors are distinctive and stable across views.
@@ -27,6 +31,7 @@ class SyntheticScene:
         self,
         cam: CameraIntrinsics,
         n_points: int = 400,
+        n_lines: int = 0,
         extent=((-8.0, 8.0), (-4.0, 4.0), (2.0, 40.0)),
         seed: int = 0,
         clear_radius: float = 0.0,
@@ -85,6 +90,13 @@ class SyntheticScene:
         # exercise loop closure.
         self.noise_sigma = 0.0
         self._noise_calls = 0
+        self.lines = None
+        if n_lines:
+            starts = rng.uniform(lo, hi, size=(n_lines, 3))
+            dirs = rng.normal(size=(n_lines, 3))
+            dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+            lengths = rng.uniform(1.0, 4.0, size=(n_lines, 1))
+            self.lines = np.stack([starts, starts + dirs * lengths], axis=1)
         self.bg = 110
 
     def render(self, R_cw: np.ndarray, t_cw: np.ndarray) -> np.ndarray:
@@ -161,6 +173,27 @@ class SyntheticScene:
                 droi = depth_out[cy0:cy1, cx0:cx1]
                 droi[mask] = z[i]
 
+        if self.lines is not None:
+            for seg in self.lines:
+                pc = (R_cw @ seg.T).T + t_cw - np.array([baseline_shift, 0.0, 0.0])
+                # Clip against the z=1 near plane (shorten, don't skip —
+                # and never project near-zero depths, which would paint
+                # streaks across the whole frame).
+                z0, z1 = pc[0, 2], pc[1, 2]
+                if z0 < 1.0 and z1 < 1.0:
+                    continue
+                pc = pc.copy()
+                if z0 < 1.0:
+                    a = (1.0 - z0) / (z1 - z0)
+                    pc[0] = pc[0] + a * (pc[1] - pc[0])
+                elif z1 < 1.0:
+                    a = (1.0 - z1) / (z0 - z1)
+                    pc[1] = pc[1] + a * (pc[0] - pc[1])
+                p0 = (cam.fx * pc[0, 0] / pc[0, 2] + cam.cx, cam.fy * pc[0, 1] / pc[0, 2] + cam.cy)
+                p1 = (cam.fx * pc[1, 0] / pc[1, 2] + cam.cx, cam.fy * pc[1, 1] / pc[1, 2] + cam.cy)
+                draw_line(img, (int(round(p0[0])), int(round(p0[1]))),
+                          (int(round(p1[0])), int(round(p1[1]))), 30)
+
         if self.noise_sigma > 0.0:
             nrng = np.random.default_rng(977 + self._noise_calls)
             self._noise_calls += 1
@@ -214,6 +247,118 @@ def _warp_scale_linear(patch: np.ndarray, M: np.ndarray, size) -> np.ndarray:
     y0, y1, fy = taps(h, M[1, 1], M[1, 2], ph)
     rows = pad[y0] * (1 - fy)[:, None] + pad[y1] * fy[:, None]
     return rows[:, x0] * (1 - fx) + rows[:, x1] * fx
+
+
+_SHIFT = 16                 # OpenCV's XY_SHIFT: 16.16 fixed point
+_ONE = 1 << _SHIFT
+_HALF = _ONE >> 1
+
+
+def _tdiv(a: int, b: int) -> int:
+    """C integer division (truncates toward zero)."""
+    q = abs(a) // abs(b)
+    return q if (a >= 0) == (b >= 0) else -q
+
+
+def _put(img, xs, ys, val):
+    h, w = img.shape
+    ok = (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+    img[ys[ok], xs[ok]] = val
+
+
+def _line2(img, p, q, val):
+    """OpenCV's ``Line2``: a 16.16 fixed-point DDA from the left (or top)
+    end, plus the rounded far end."""
+    (x1, y1), (x2, y2) = p, q
+    dx, dy = x2 - x1, y2 - y1
+    if abs(dx) > abs(dy):
+        if dx < 0:
+            x1, x2, y1, y2, dy = x2, x1, y2, y1, -dy
+        k = np.arange(((x2 - x1) >> _SHIFT) + 1, dtype=np.int64)
+        xs = ((x1 + _HALF) >> _SHIFT) + k
+        ys = (y1 + _HALF + k * _tdiv(dy << _SHIFT, abs(x2 - x1) | 1)) >> _SHIFT
+    else:
+        if dy < 0:
+            x1, x2, y1, y2, dx = x2, x1, y2, y1, -dx
+        k = np.arange(((y2 - y1) >> _SHIFT) + 1, dtype=np.int64)
+        ys = ((y1 + _HALF) >> _SHIFT) + k
+        xs = (x1 + _HALF + k * _tdiv(dx << _SHIFT, abs(y2 - y1) | 1)) >> _SHIFT
+    _put(img, np.append(xs, (x2 + _HALF) >> _SHIFT), np.append(ys, (y2 + _HALF) >> _SHIFT), val)
+
+
+def _fill_convex(img, v, val):
+    """OpenCV's ``FillConvexPoly`` (non-antialiased, 16.16 vertices v):
+    edges drawn with ``Line2``, then rows filled between the two edge
+    chains walked from the top vertex with integer slopes."""
+    h, w = img.shape
+    n = len(v)
+    for i in range(n):
+        _line2(img, v[i - 1], v[i], val)
+    ys = [p[1] for p in v]
+    xs = [p[0] for p in v]
+    ymin = (min(ys) + _HALF) >> _SHIFT
+    ymax = min((max(ys) + _HALF) >> _SHIFT, h - 1)
+    if ((max(xs) + _HALF) >> _SHIFT) < 0 or ymax < 0 or ((min(xs) + _HALF) >> _SHIFT) >= w or ymin >= h:
+        return
+    imin = int(np.argmin(ys))
+    edge = [[imin, 1, -_ONE, 0, ymin], [imin, n - 1, -_ONE, 0, ymin]]   # idx, di, x, dx, ye
+    edges = n
+    y = ymin
+    rows, lo, hi = [], [], []
+    while y <= ymax:
+        for e in edge:
+            if y < e[4]:
+                continue
+            idx0 = e[0]
+            idx = (idx0 + e[1]) % n
+            while True:
+                edges -= 1
+                if edges < 0:
+                    break
+                ty = (v[idx][1] + _HALF) >> _SHIFT
+                if ty > y:
+                    e[2], e[3], e[4], e[0] = v[idx0][0], _tdiv((v[idx][0] - v[idx0][0]) * 2 + (ty - y), 2 * (ty - y)), ty, idx
+                    break
+                idx0, idx = idx, (idx + e[1]) % n
+        if edges < 0:
+            break
+        # Rows up to the next vertex: x advances by the integer slopes.
+        y_next = min(edge[0][4], edge[1][4], ymax + 1)
+        k = np.arange(max(y_next - y, 1), dtype=np.int64)
+        xa, xb = edge[0][2] + k * edge[0][3], edge[1][2] + k * edge[1][3]
+        rows.append(y + k)
+        lo.append((np.minimum(xa, xb) + _HALF) >> _SHIFT)
+        hi.append((np.maximum(xa, xb) + _HALF) >> _SHIFT)
+        edge[0][2] += len(k) * edge[0][3]
+        edge[1][2] += len(k) * edge[1][3]
+        y += len(k)
+    if not rows:
+        return
+    r, a, b = np.concatenate(rows), np.concatenate(lo), np.concatenate(hi)
+    keep = (r >= 0) & (r < h) & (b >= 0) & (a < w)
+    r, a, b = r[keep], np.clip(a[keep], 0, w - 1), np.clip(b[keep], 0, w - 1)
+    run = b - a + 1
+    start = np.repeat(np.cumsum(run) - run, run)
+    img[np.repeat(r, run), np.repeat(a, run) + np.arange(run.sum()) - start] = val
+
+
+def draw_line(img: np.ndarray, p0, p1, val):
+    """``cv2.line(img, p0, p1, val, 2, cv2.LINE_8)`` on a uint8 [H, W]
+    image, for integer endpoints: OpenCV's ``ThickLine`` with thickness
+    2, a quad one pixel either side of the segment plus a filled circle
+    of radius 1 (a plus) on each end."""
+    a = (int(p0[0]) << _SHIFT, int(p0[1]) << _SHIFT)
+    b = (int(p1[0]) << _SHIFT, int(p1[1]) << _SHIFT)
+    dx = (a[0] - b[0]) / _ONE
+    dy = (b[1] - a[1]) / _ONE
+    r2 = dx * dx + dy * dy
+    if r2 > np.finfo(np.float64).eps:
+        r = _ONE / np.sqrt(r2)
+        ox, oy = int(np.rint(dy * r)), int(np.rint(dx * r))
+        _fill_convex(img, [(a[0] + ox, a[1] + oy), (a[0] - ox, a[1] - oy),
+                           (b[0] - ox, b[1] - oy), (b[0] + ox, b[1] + oy)], val)
+    for x, y in (p0, p1):
+        _put(img, np.array([x - 1, x, x + 1, x, x]), np.array([y, y, y, y - 1, y + 1]), val)
 
 
 def loop_circuit_trajectory(

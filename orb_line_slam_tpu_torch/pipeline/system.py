@@ -3,8 +3,9 @@
 Port of ``orb_line_slam_tpu/pipeline/system.py`` (``track_stereo``
 124-127, ``shutdown`` 239-249, ``save_trajectory_tum/kitti`` 252-258,
 ``tracking_state`` and ``map`` 275-279).  The device is an explicit,
-required argument; nothing falls back to the CPU.  Loop closing is not
-ported yet, so ``use_loop_closing`` must be False.
+required argument; nothing falls back to the CPU.  Stereo tracking runs
+with points and, under the default ``LineConfig(enabled=True)``, lines.
+Loop closing is not ported yet, so ``use_loop_closing`` must be False.
 """
 
 from __future__ import annotations

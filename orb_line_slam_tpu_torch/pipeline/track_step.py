@@ -1,21 +1,22 @@
-"""The per-frame tracking step (points only).
+"""The per-frame tracking step.
 
 Port of ``orb_line_slam_tpu/pipeline/track_step.py`` — ``MapMirror``
-(65-75), ``_invert_matches`` (104-109), ``track_step`` with
-``has_lines=False`` (112-371), ``remap_stats`` (410-426) and
-``zero_stats`` (429-438):
+(65-75), ``_invert_matches`` (104-109), ``track_step`` (112-371),
+``remap_stats`` (410-426) and ``zero_stats`` (429-438):
 
   motion-model projection search -> pose opt 2x8 (path A)
   reference-KF descriptor match -> EPnP-RANSAC seed -> pose opt 2x8 (path B)
   pick the better-supported pose; local-map projection search at it
-  final joint pose opt 4x10, inlier gating, keyframe-decision counts.
+  with lines: map-line projection search at it (287-304)
+  final joint point(+line) pose opt 4x10, inlier gating, keyframe-decision
+  counts, per-mirror-line found/visible counts (341-356).
 
 Everything stays on the device and no value is read back; the host
 reads what it needs from the returned ``TrackOut``.  The TPU-tunnel
 machinery (``fused_frame_track_step``, ``pack_kf_event``, the packed
-float buffer) is not ported.  Path B's EPnP hypotheses are drawn from a
-generator seeded with 17 on every frame, as the JAX step uses
-``PRNGKey(17)``; the draw itself differs from jax.random.
+float buffer) is not ported.  Path B's EPnP hypotheses are the JAX
+step's own draw from ``PRNGKey(17)`` on every frame
+(``backend/pnp.py::draw_hypotheses``).
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ import torch
 
 from ..backend.pnp import solve_pnp_ransac
 from ..backend.pose_opt import pose_optimize
+from ..backend.residuals import line_obs_coeffs
 from ..config import SlamConfig
 from ..geometry.camera import project_stereo
 from ..geometry.se3 import se3_apply, se3_compose
+from ..matching.line_matcher import search_lines_by_projection
 from ..matching.point_matcher import (
     match_descriptors,
     resolve_duplicates,
@@ -69,6 +72,11 @@ class TrackOut(NamedTuple):
     n_stage1: torch.Tensor        # int32
     tracked_close: torch.Tensor   # int32
     untracked_close: torch.Tensor  # int32
+    n_line_inliers: torch.Tensor  # int32 — line inliers of the final solve
+    ln_found_acc: torch.Tensor    # int32 [Lcap] per-mirror-line found counter
+    ln_vis_acc: torch.Tensor      # int32 [Lcap] per-mirror-line visible counter
+    ln_match_idx: torch.Tensor    # int32 [Lcap] map line -> frame line row (-1)
+    ln_match_mask: torch.Tensor   # bool [Lcap]
 
 
 def _invert_matches(m_idx, m_mask, n_rows: int, n_feats: int):
@@ -89,8 +97,14 @@ def track_step(
     Rv, tv, R_last, t_last, has_velocity,
     ref_xy, ref_desc, ref_angle, ref_slots,
     snap_ids, found_acc, vis_acc,
+    ln_found_acc, ln_vis_acc,
+    lf, ln_start, ln_end, ln_desc, ln_valid,
     cfg: SlamConfig,
+    has_lines: bool = False,
 ) -> TrackOut:
+    """One frame against the map mirror.  ln_* are the mirror's line
+    table [Lcap] (dummies when has_lines is False) and lf the frame's
+    LineFeatures (unused when has_lines is False)."""
     cam = cfg.camera
     scales = cfg.orb.level_scales
     dev = frame.xy.device
@@ -154,8 +168,7 @@ def track_step(
     gidB = _pick(selB, ref_gid[rB], neg1(ref_gid[rB]))
 
     sigma2B = (cfg.orb.scale_factor ** frame.octave.to(torch.float32)) ** 2
-    gen = torch.Generator(device=dev).manual_seed(PNP_SEED)
-    Rr, tr, _, n_r = solve_pnp_ransac(ptsB, frame.xy, selB & frame.valid, gen, cam, sigma2B)
+    Rr, tr, _, n_r = solve_pnp_ransac(ptsB, frame.xy, selB & frame.valid, PNP_SEED, cam, sigma2B)
     use_r = n_r >= 10
     resB = pose_optimize(_pick(use_r, Rr, R_last), _pick(use_r, tr, t_last), ptsB, obs,
                          frame.octave, selB & frame.valid, cam, cfg.orb.scale_factor,
@@ -207,9 +220,23 @@ def track_step(
         & (cosang > 0.5)
     )
 
+    # ---- Map lines: projection search at the selected pose -------------
+    Lcap = ln_start.shape[0]
+    line_kw = {}
+    ln_match_idx = torch.full((Lcap,), -1, dtype=torch.int32, device=dev)
+    ln_match_mask = torch.zeros(Lcap, dtype=torch.bool, device=dev)
+    if has_lines:
+        mL = search_lines_by_projection(ln_start, ln_end, ln_desc, ln_valid, R1, t1, lf, cam)
+        ri = mL.idx.long()   # -1 (unmatched) reads the last row, as in the JAX code
+        line_kw = dict(
+            line_start_w=ln_start, line_end_w=ln_end, line_obs=line_obs_coeffs(lf.p0[ri], lf.p1[ri]),
+            line_octave=torch.zeros(Lcap, dtype=torch.int32, device=dev), line_valid=mL.mask & ln_valid,
+        )
+        ln_match_idx, ln_match_mask = mL.idx, mL.mask
+
     # ---- Final joint pose opt ------------------------------------------
     res2 = pose_optimize(R1, t1, pts_merged, obs, frame.octave, sel_merged,
-                         cam, cfg.orb.scale_factor)
+                         cam, cfg.orb.scale_factor, **line_kw)
     gid_out = _pick(res2.inliers & sel_merged, gid_merged, neg1(gid_merged))
 
     close = frame.valid & (frame.depth > 0) & (frame.depth < cfg.tracking.th_depth * cam.baseline)
@@ -222,6 +249,16 @@ def track_step(
     Ri, ti = R_last.T, -(R_last.T @ t_last)
     Rv_out, tv_out = se3_compose(R_out, t_out, Ri, ti)
     found_hit = torch.any((snap_gid[:, None] == gid_out[None, :]) & (gid_out >= 0)[None, :], dim=1)
+    # Line landmark statistics (MapLine IncreaseFound / IncreaseVisible):
+    # visible = midpoint in front of the final pose and inside the image;
+    # found = matched this frame and a line inlier of the final solve.
+    if has_lines:
+        xm = se3_apply(res2.R, res2.t, 0.5 * (ln_start + ln_end))
+        uvm = project_stereo(cam, xm)
+        ln_visible = (ln_valid & (xm[:, 2] > 0.1) & (uvm[:, 0] >= 0) & (uvm[:, 0] < cam.width)
+                      & (uvm[:, 1] >= 0) & (uvm[:, 1] < cam.height))
+        ln_found_acc = ln_found_acc + (ln_match_mask & ln_valid & res2.line_inliers).to(torch.int32)
+        ln_vis_acc = ln_vis_acc + ln_visible.to(torch.int32)
     return TrackOut(
         R=R_out, t=t_out, Rv=Rv_out, tv=tv_out, ok=ok,
         assoc_gid=gid_out, inliers=res2.inliers,
@@ -229,18 +266,27 @@ def track_step(
         vis_acc=vis_acc + visible_snap.to(torch.int32),
         n_inliers=res2.n_inliers, used_motion=use_mm, stage1_ok=stage1_ok,
         n_stage1=n1, tracked_close=tracked_close, untracked_close=untracked_close,
+        n_line_inliers=res2.line_inliers.sum().to(torch.int32),
+        ln_found_acc=ln_found_acc, ln_vis_acc=ln_vis_acc,
+        ln_match_idx=ln_match_idx, ln_match_mask=ln_match_mask,
     )
 
 
-def remap_stats(out: TrackOut, remap: torch.Tensor) -> TrackOut:
-    """Re-index the found/visible accumulators when the local-map snapshot
-    changes: new slot j takes old slot remap[j]'s count (-1 -> 0)."""
-    def take(a):
-        return torch.where(remap >= 0, a[torch.clamp(remap, min=0).long()], torch.zeros_like(a))
+def remap_stats(out: TrackOut, remap: torch.Tensor, ln_remap: torch.Tensor) -> TrackOut:
+    """Re-index the found/visible accumulators (points and lines) when the
+    local-map snapshot changes: new slot j takes old slot remap[j]'s
+    count (-1 -> 0)."""
+    def take(a, r):
+        return torch.where(r >= 0, a[torch.clamp(r, min=0).long()], torch.zeros_like(a))
 
-    return out._replace(found_acc=take(out.found_acc), vis_acc=take(out.vis_acc))
+    return out._replace(
+        found_acc=take(out.found_acc, remap), vis_acc=take(out.vis_acc, remap),
+        ln_found_acc=take(out.ln_found_acc, ln_remap), ln_vis_acc=take(out.ln_vis_acc, ln_remap),
+    )
 
 
 def zero_stats(out: TrackOut) -> TrackOut:
     """Reset the found/visible accumulators after the host consumed them."""
-    return out._replace(found_acc=torch.zeros_like(out.found_acc), vis_acc=torch.zeros_like(out.vis_acc))
+    z = torch.zeros_like
+    return out._replace(found_acc=z(out.found_acc), vis_acc=z(out.vis_acc),
+                        ln_found_acc=z(out.ln_found_acc), ln_vis_acc=z(out.ln_vis_acc))

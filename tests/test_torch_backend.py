@@ -75,12 +75,12 @@ def test_jacobians_match_jacfwd():
 
 
 def test_pnp_ransac_same_samples():
-    """Same sample_idx (jax.random.choice with the key, replicated here)
-    -> the same best hypothesis: identical inlier mask and count.  The
-    JAX package's float32 EPnP is itself off the ground truth by up to
-    ~2 mm on this problem, so the port (float64 null vector) is held to
-    1e-4 of the ground truth, and to the JAX pose within the JAX pose's
-    own error + 1e-4."""
+    """The same key draws the same hypotheses in both packages -> the
+    same best hypothesis: identical inlier mask and count.  The JAX
+    package's float32 EPnP is itself off the ground truth by up to ~2 mm
+    on this problem, so the port (float64 null vector) is held to 1e-4
+    of the ground truth, and to the JAX pose within the JAX pose's own
+    error + 1e-4."""
     cam, pts, obs = _pose_problem(0, 0)
     R_true, t_true = np.eye(3), np.array([0.1, -0.05, 0.02])
     N = pts.shape[0]
@@ -88,21 +88,43 @@ def test_pnp_ransac_same_samples():
     valid[::7] = False
     obs[::11, :2] += 25.0  # outliers, so the best hypothesis is a choice
     sigma2 = np.ones(N, np.float32)
-    key = jax.random.PRNGKey(17)
-    p = valid.astype(np.float32) / valid.sum()
-    idx = np.asarray(jax.random.choice(key, N, shape=(128, 6), replace=True, p=jnp.asarray(p)))
     Rj, tj, okj, nj = (np.asarray(a) for a in jax_pnp(
-        jnp.asarray(pts), jnp.asarray(obs[:, :2]), jnp.asarray(valid), key, cam, jnp.asarray(sigma2)))
+        jnp.asarray(pts), jnp.asarray(obs[:, :2]), jnp.asarray(valid), jax.random.PRNGKey(17), cam,
+        jnp.asarray(sigma2)))
     Rt, tt, okt, nt = (a.numpy() for a in solve_pnp_ransac(
-        T(pts), T(obs[:, :2]), T(valid), None, TorchCam(*cam), T(sigma2), sample_idx=T(idx)))
+        T(pts), T(obs[:, :2]), T(valid), 17, TorchCam(*cam), T(sigma2)))
     assert abs(int(nt) - int(nj)) <= 1 and (okt == okj).mean() > 0.99
     assert np.abs(Rt - R_true).max() < 1e-4 and np.abs(tt - t_true).max() < 1e-4
     assert np.abs(Rt - Rj).max() <= np.abs(Rj - R_true).max() + 1e-4
     assert np.abs(tt - tj).max() <= np.abs(tj - t_true).max() + 1e-4
-    # The generator path draws valid rows only and finds the pose too.
-    g = torch.Generator().manual_seed(17)
-    Rg, tg, _, ng = solve_pnp_ransac(T(pts), T(obs[:, :2]), T(valid), g, TorchCam(*cam), T(sigma2))
-    assert abs(int(ng) - int(nj)) <= 1 and np.abs(tg.numpy() - t_true).max() < 1e-3
+
+
+@pytest.mark.parametrize("seed", [0, 17, 49, 123457])
+def test_jax_uniform_bit_exact(seed):
+    """The port's threefry uniforms are jax.random.uniform's, bit for bit."""
+    from orb_line_slam_tpu_torch.backend.pnp import jax_uniform
+
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (128, 6))).ravel()
+    assert np.array_equal(jax_uniform(seed, 768).view(np.uint32), want.view(np.uint32))
+
+
+@pytest.mark.parametrize("n,frac,seed", [(1200, 0.3, 17), (1200, 0.03, 17), (777, 0.9, 17), (16, 0.5, 3),
+                                         (13, 1.0, 17), (1200, 0.0, 17), (300, 0.5, 101)])
+def test_draw_hypotheses_matches_jax_choice(n, frac, seed):
+    """Path B's hypotheses are jax.random.choice's, index for index, on
+    valid masks of the tracking step's size and on short and empty ones:
+    the cumulative sum is associated as XLA's (torch.cumsum is not)."""
+    from orb_line_slam_tpu_torch.backend.pnp import draw_hypotheses, xla_cumsum
+
+    rng = np.random.default_rng(n + seed)
+    valid = rng.random(n) < frac
+    p = valid.astype(np.float32) / np.float32(max(valid.sum(), 1))
+    want = np.asarray(jax.random.choice(jax.random.PRNGKey(seed), n, shape=(128, 6), replace=True,
+                                        p=jnp.asarray(p)))
+    got = draw_hypotheses(T(valid), seed).numpy()
+    assert np.array_equal(got, want)
+    cum = np.asarray(jnp.cumsum(jnp.asarray(p)))
+    assert np.array_equal(xla_cumsum(T(p)).numpy(), cum)
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +291,9 @@ def test_track_step_parity():
             *jacc, jnp.zeros(8, jnp.int32), jnp.zeros(8, jnp.int32), None, *dummy8, cfg=cfg, has_lines=False,
         )
         ot = track_step(
-            tframes[step], tframes[step - 1], tmir, *tcarry, *(T(a) for a in ref), T(snap), *tacc, cfg=tcfg,
+            tframes[step], tframes[step - 1], tmir, *tcarry, *(T(a) for a in ref), T(snap), *tacc,
+            torch.zeros(8, dtype=torch.int32), torch.zeros(8, dtype=torch.int32), None,
+            *(T(np.asarray(a)) for a in dummy8), cfg=tcfg, has_lines=False,
         )
         assert bool(ot.ok) and bool(oj.ok)
         assert np.abs(ot.R.numpy() - np.asarray(oj.R)).max() < 1e-3

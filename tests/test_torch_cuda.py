@@ -1,6 +1,6 @@
 """Tests that need a CUDA card: the hand-written patch-tile kernel
-against its plain version, and the front end on the card against the
-CPU.  They skip where no card is present; run them on the card with
+against its plain version, and the point and line front ends on the card
+against the CPU.  They skip where no card is present; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -63,3 +63,29 @@ def test_frame_on_card_matches_cpu(cuda):
     hit = (fc.depth[both] > 0) & (fg.depth[both] > 0)
     assert ((fc.depth[both] > 0) == (fg.depth[both] > 0)).mean() > 0.95
     assert (np.abs(fc.depth[both][hit] - fg.depth[both][hit]) / fg.depth[both][hit] < 0.01).mean() > 0.95
+
+
+def test_line_frontend_on_card_matches_cpu(cuda):
+    """build_line_features on the card vs the CPU plain path: the line
+    contract of tests/test_tpu_parity.py:213-250."""
+    from orb_line_slam_tpu_torch.config import CameraIntrinsics, LineConfig
+    from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene, circular_trajectory
+    from orb_line_slam_tpu_torch.frontend.line_extractor import build_line_features
+
+    cam = CameraIntrinsics(fx=400.0, fy=400.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
+    cfg = LineConfig(enabled=True, n_lines=64)
+    scene = SyntheticScene(cam, n_points=500, n_lines=40, seed=9, extent=((-14, 14), (-6, 6), (6, 60)))
+    l, r = scene.render_stereo(*circular_trajectory(12, step=0.3)[6])
+    lc = build_line_features(torch.from_numpy(l), torch.from_numpy(r), cam, cfg).numpy()
+    lg = build_line_features(torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda), cam, cfg)
+    assert lg.p0.device.type == "cuda"
+    lg = lg.numpy()
+    both = lc.valid & lg.valid
+    assert (lc.valid == lg.valid).mean() > 0.9 and both.sum() >= 8
+    d_ep = np.maximum(np.abs(lc.p0 - lg.p0).max(-1), np.abs(lc.p1 - lg.p1).max(-1))[both]
+    assert np.median(d_ep) < 1.0
+    assert np.median(np.unpackbits(lc.desc[both] ^ lg.desc[both], axis=1).sum(1)) <= 8
+    for dc, dg in ((lc.depth0[both], lg.depth0[both]), (lc.depth1[both], lg.depth1[both])):
+        hit = (dc > 0) & (dg > 0)
+        if hit.sum() >= 3:
+            assert np.median(np.abs(dc[hit] - dg[hit]) / dg[hit]) < 0.02

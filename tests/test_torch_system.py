@@ -71,7 +71,8 @@ def test_slice_matches_jax_system():
 
 
 def test_package_never_imports_jax(tmp_path):
-    """The port imports and tracks a frame with `import jax` made to fail."""
+    """The port imports and tracks frames, lines on, with `import jax`
+    made to fail."""
     script = textwrap.dedent(f"""
         import sys
         class _Block:
@@ -89,11 +90,13 @@ def test_package_never_imports_jax(tmp_path):
         from orb_line_slam_tpu_torch.pipeline.system import System
         import orb_line_slam_tpu_torch.convert
         cam = CameraIntrinsics(fx=400.0, fy=400.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
-        cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=512, n_levels=3), lines=LineConfig(enabled=False))
-        l, r = SyntheticScene(cam, n_points=300, seed=4).render_stereo(np.eye(3), np.zeros(3))
+        cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=512, n_levels=3), lines=LineConfig(n_lines=32))
+        scene = SyntheticScene(cam, n_points=300, n_lines=30, seed=4, extent=((-14, 14), (-6, 6), (6, 60)))
         s = System(cfg, device="cpu")
-        s.track_stereo(l, r)
+        for z in (0.0, 0.2):
+            s.track_stereo(*scene.render_stereo(np.eye(3), np.array([0.0, 0.0, -z])))
         assert s.tracking_state() == "OK", s.tracking_state()
+        assert s.map.ln_valid.sum() > 0 and s.tracker._mir["has_lines"]
         assert not any(m == "jax" or m.startswith("jax.") for m in sys.modules)
         print("ok")
     """)
