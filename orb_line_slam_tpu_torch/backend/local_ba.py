@@ -7,8 +7,11 @@ gradients and the Cholesky-folded camera-landmark coupling BL [P,C,6,3]
 assembled by segment sums (``index_put_`` with accumulate — the JAX package's one-hot
 matmuls exist for the MXU, and ``onehot(obs_lm, P)`` alone would be
 512 MB at P=8192, O=16384); the reduced camera system
-S = Hcc - (BL)(BL)^T solved with ``cholesky_ex``/``cholesky_solve``;
-landmark back-substitution.  Two stages as the reference: 5 Huber
+S = Hcc - (BL)(BL)^T solved by LU as the JAX code solves it
+(``jnp.linalg.solve``): right after a loop correction float32 rounding
+leaves S indefinite, where a Cholesky factorisation fails and every step
+is rejected while LU still returns a usable one; landmark
+back-substitution.  Two stages as the reference: 5 Huber
 iterations, chi2 gate, 10 plain iterations, final gate; each stage
 exits early after two accepted steps with < 0.1% relative gain.
 """
@@ -113,8 +116,7 @@ def bundle_adjust(
         # Fixed cameras: identity rows/cols, zero rhs.
         S = S * m6[:, None] * m6[None, :] + torch.diag(1.0 - m6)
         rhs = rhs * m6
-        Lc, _ = torch.linalg.cholesky_ex(S)
-        dc = torch.cholesky_solve(rhs[:, None], Lc)[:, 0].reshape(C, 6)
+        dc = torch.linalg.solve_ex(S, rhs)[0].reshape(C, 6)   # LU, as jnp.linalg.solve
         # dp = -(V gp + L (BL^T dc))
         blt_dc = torch.einsum("pcik,ci->pk", BL, dc)
         dp = -((V @ gp[..., None])[..., 0] + (L @ blt_dc[..., None])[..., 0])

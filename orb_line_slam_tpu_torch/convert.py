@@ -19,6 +19,7 @@ from .config import (
 )
 from .frontend.frame import Frame
 from .frontend.line_extractor import LineFeatures
+from .loop.vocabulary import Vocabulary
 from .slam_map.map_store import MapStore
 
 
@@ -77,3 +78,17 @@ def map_store_from_numpy(store) -> MapStore:
     out.lock = type(store.lock)() if hasattr(store, "lock") else None
     out.on_kf_culled = []
     return out
+
+
+def vocabulary_from_numpy(children, node_desc=None, word_id=None, word_weight=None,
+                          k=None, depth=None) -> Vocabulary:
+    """A port Vocabulary over copies of the given tree arrays, or of the
+    arrays of a vocabulary object passed as the only argument (the JAX
+    package's Vocabulary has the same attributes), so that both packages
+    can run with one tree."""
+    if node_desc is None:
+        v = children
+        children, node_desc, word_id, word_weight, k, depth = (
+            v.children, v.node_desc, v.word_id, v.word_weight, v.k, v.depth)
+    return Vocabulary(np.array(children), np.array(node_desc), np.array(word_id),
+                      np.array(word_weight), int(k), int(depth))

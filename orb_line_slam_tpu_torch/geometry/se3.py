@@ -50,14 +50,15 @@ def so3_exp(phi: torch.Tensor) -> torch.Tensor:
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> axis-angle. Batched; safe near identity."""
-    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    # The angle keeps a trailing axis of 1: arithmetic between a Python
+    # scalar and a 0-dim tensor promotes to float64 under torch.func.
+    trace = (R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2])[..., None]
     cos_theta = torch.clamp((trace - 1.0) * 0.5, -1.0 + 1e-7, 1.0 - 1e-7)
-    theta = torch.arccos(cos_theta)
+    th = torch.arccos(cos_theta)
     w = torch.stack(
         [R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0], R[..., 1, 0] - R[..., 0, 1]],
         dim=-1,
     )
-    th = theta[..., None]
     scale = torch.where(th < 1e-6, 0.5 + th**2 / 12.0, th / (2.0 * torch.sin(th) + _EPS))
     return scale * w
 

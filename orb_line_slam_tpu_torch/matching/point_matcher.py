@@ -2,8 +2,8 @@
 
 Port of ``orb_line_slam_tpu/matching/point_matcher.py`` —
 ``rotation_consistency`` (39-56), ``match_descriptors`` (59-77),
-``predict_scale`` (80-87), ``search_by_projection`` (90-182) and
-``resolve_duplicates`` (228-245): distance matrix + geometric mask +
+``predict_scale`` (80-87), ``search_by_projection`` (90-182),
+``search_by_sim3_dir`` (188-225) and ``resolve_duplicates`` (228-245): distance matrix + geometric mask +
 best/second-best + ratio test + 30-bin rotation histogram, with the
 reference's thresholds.  Leading batch dims are not supported; callers
 loop over the few keyframe pairs.
@@ -17,7 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import CameraIntrinsics
-from ..geometry.camera import project_stereo
+from ..geometry.camera import project, project_stereo
 from ..geometry.se3 import se3_apply
 from ..ops.hamming import TH_HIGH, TH_LOW, hamming_matrix, knn2
 
@@ -115,6 +115,36 @@ def search_by_projection(
         & (d1 < max_dist)
         & (d1.to(torch.float32) <= ratio * d2.to(torch.float32))
     )
+    return Matches(_neg1(idx, ok), d1, ok)
+
+
+def search_by_sim3_dir(
+    pts_in_dst,   # [M, 3] source landmarks in the destination camera frame
+    desc_src,     # [M, 32]
+    valid_src,    # [M]
+    xy_dst,       # [N, 2] destination keypoints
+    desc_dst,     # [N, 32]
+    oct_dst,      # [N]
+    valid_dst,    # [N]
+    cam: CameraIntrinsics, level_scales, radius: float = 7.5, max_dist: int = TH_HIGH,
+) -> Matches:
+    """One direction of SearchBySim3: project the source keyframe's
+    landmarks (already moved by the current Sim3 into the destination
+    camera frame) and match within a pixel window scaled by the
+    destination keypoint's level, Hamming <= max_dist, no ratio test.
+    The caller runs both directions and keeps the mutual pairs."""
+    scales = torch.tensor(level_scales, dtype=torch.float32, device=pts_in_dst.device)
+    uv = project(cam, pts_in_dst)
+    ok_src = (
+        valid_src & (pts_in_dst[:, 2] > 0.05)
+        & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width) & (uv[:, 1] >= 0) & (uv[:, 1] < cam.height)
+    )
+    du = uv[:, 0:1] - xy_dst[None, :, 0]
+    dv = uv[:, 1:2] - xy_dst[None, :, 1]
+    r = radius * scales[torch.clamp(oct_dst.long(), 0, len(level_scales) - 1)]
+    close = (du * du + dv * dv) <= (r * r)[None, :]
+    idx, d1, _ = knn2(hamming_matrix(desc_src, desc_dst), close & valid_dst[None, :])
+    ok = ok_src & (d1 <= max_dist)
     return Matches(_neg1(idx, ok), d1, ok)
 
 

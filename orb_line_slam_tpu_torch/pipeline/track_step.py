@@ -275,8 +275,12 @@ def track_step(
 def remap_stats(out: TrackOut, remap: torch.Tensor, ln_remap: torch.Tensor) -> TrackOut:
     """Re-index the found/visible accumulators (points and lines) when the
     local-map snapshot changes: new slot j takes old slot remap[j]'s
-    count (-1 -> 0)."""
+    count (-1 -> 0).  Line accumulators written at another line capacity
+    (the mirror switched between 8 and n_lines rows since) restart at
+    zero, as they do in the next track step."""
     def take(a, r):
+        if a.shape[0] != r.shape[0]:
+            return torch.zeros(r.shape[0], dtype=a.dtype, device=a.device)
         return torch.where(r >= 0, a[torch.clamp(r, min=0).long()], torch.zeros_like(a))
 
     return out._replace(

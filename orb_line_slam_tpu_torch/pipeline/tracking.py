@@ -11,9 +11,12 @@ riding on the reference keyframe.  Ported: ``process_stereo`` (200-240),
 ``_record``/``_on_kf_culled``/``final_trajectory`` (718-769),
 ``_stereo_initialize`` with its map lines (772-813),
 ``_pose_opt_from_assoc``, ``_track_reference_kf``, ``_relocalize``
-(816-928, recent-keyframe candidates), ``_need_keyframe`` (931-956),
-``_create_keyframe_locked`` (967-1193: line stats, ``set_kf_lines``,
-stereo line creation, line fuse, two-view lines, line culling),
+(816-928: keyframe-database candidates from ``reloc_candidates_fn`` when
+the loop module is wired in, else recent keyframes), ``_need_keyframe``
+(931-956), ``_create_keyframe_locked`` (967-1193: line stats,
+``set_kf_lines``, stereo line creation, line fuse, two-view lines, line
+culling, and the ``on_keyframe`` hook before the mapping work, with the
+pose refresh and re-anchoring after a loop correction, 1131-1157),
 ``_local_ba``/``_apply_ba`` (1261-1358: the joint point+line BA when
 the window holds line observations) and ``poll_map_jobs``
 (1422-1488).  The line mirror holds ``n_lines`` rows only once the map
@@ -97,6 +100,8 @@ class Tracker:
         self.recent_ln: list[np.ndarray] = []
         self.trajectory: list[TrajectoryEntry] = []
         self.stats: list[dict] = []
+        self.on_keyframe = None          # callback(kf_id) after insertion
+        self.reloc_candidates_fn = None  # BoW relocalization candidates
         self._traj_by_kf: dict[int, list[TrajectoryEntry]] = {}
         self.map.on_kf_culled.append(self._on_kf_culled)
         self._mir = None
@@ -436,10 +441,16 @@ class Tracker:
         return True, assoc, n_inl
 
     def _relocalize(self, frame: Frame):
-        """Relocalization against the 5 most recent keyframes: EPnP-RANSAC
-        from descriptor matches, then a reference-KF track."""
+        """Relocalization against the keyframe database's BoW candidates
+        when the loop module is wired in, else the 5 most recent
+        keyframes: EPnP-RANSAC from descriptor matches, then a
+        reference-KF track."""
         m, dev = self.map, self.device
-        cand = [k for k in range(m._next_kf - 1, -1, -1) if m.kf_valid[k]][:5]
+        cand = None
+        if self.reloc_candidates_fn is not None:
+            cand = [k for k in self.reloc_candidates_fn(frame) if m.kf_valid[k]][:5]
+        if not cand:
+            cand = [k for k in range(m._next_kf - 1, -1, -1) if m.kf_valid[k]][:5]
         for k in cand:
             kf_lm = m.kf_obs_lm[k]
             has_lm = (kf_lm >= 0) & m.pt_valid[np.clip(kf_lm, 0, m.P - 1)]
@@ -550,6 +561,25 @@ class Tracker:
         self._ref_frame_kf = kf
         # Tracking quality at creation = the triggering frame's inliers.
         self.ref_kf_matches = max(n_inliers or int((fh.valid & (assoc >= 0)).sum()), 40)
+
+        # Loop closing runs before the mapping work, so a correction
+        # lands before triangulation, fuse and BA are built and they see
+        # corrected poses.
+        if self.on_keyframe is not None:
+            R_before = self.map.kf_R[kf].copy()
+            t_before = self.map.kf_t[kf].copy()
+            with self.timing.stage("loop_closing"):
+                self.on_keyframe(kf)
+            # A loop closure may have rewritten keyframe poses; ride with
+            # the (possibly corrected) reference keyframe.
+            self.R = self.map.kf_R[kf].copy()
+            self.t = self.map.kf_t[kf].copy()
+            if np.abs(self.R - R_before).max() > 1e-5 or np.abs(self.t - t_before).max() > 1e-4:
+                # Large correction: the carried track state lives in a
+                # stale world frame.  Re-anchor; the next frame starts cold.
+                self.last_R, self.last_t = self.R.copy(), self.t.copy()
+                self._carry = None
+                self.last_frame = e.frame
 
         # Triangulation (CreateNewMapPoints) and fuse (SearchInNeighbors),
         # then local BA: run and applied now (the pinned schedule).

@@ -9,6 +9,10 @@ keyframe (reverse); a hit on a free feature adds an observation, a hit
 on a feature bound to another landmark merges the two into the
 better-observed one.  Landmark tables are gathered from the device map
 mirror by id.  The uint32 "flat" upload variant is not ported.
+``fuse_into_keyframe`` (44-103) is the loop corrector's search-and-fuse
+of one landmark set into one keyframe, from the host arrays (the
+correction has just rewritten them); its power-of-two padding kept
+XLA's compiled shapes stable and is dropped.
 """
 
 from __future__ import annotations
@@ -72,6 +76,28 @@ def _apply_matches(store, k: int, lm_ids, mask, idx, lm_gens=None) -> int:
         store.replace_points(src, dst)
     store.touch_obs()
     return int(len(lm))
+
+
+def fuse_into_keyframe(store, lm_ids: np.ndarray, k: int, cam, level_scales,
+                       radius: float = 3.0, *, device):
+    """Project landmarks into keyframe k; add observations / merge
+    duplicates. Returns number of fused observations."""
+    lm_ids = lm_ids[store.pt_valid[lm_ids]]
+    if len(lm_ids) == 0:
+        return 0
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    m = search_by_projection(
+        t(store.pt_pos[lm_ids]), t(store.pt_desc[lm_ids]),
+        torch.ones(len(lm_ids), dtype=torch.bool, device=device), t(store.pt_oct[lm_ids]),
+        t(store.kf_R[k]), t(store.kf_t[k]), _kf_view(store, k, device), cam, level_scales,
+        radius=radius, max_dist=50, ratio=1.0, check_ur=True,
+        max_dist_p=t(store.pt_max_dist[lm_ids]), min_dist_p=t(store.pt_min_dist[lm_ids]),
+        normal_p=t(store.pt_normal[lm_ids]),
+        oct_tol=2,  # PredictScale is calibrated +1 for this detector
+    )
+    m = resolve_duplicates(m, store.F)
+    mask, idx = m.mask.cpu().numpy(), m.idx.cpu().numpy()
+    return _apply_matches(store, k, lm_ids, mask, idx)
 
 
 def _gather(mir, ids: np.ndarray):

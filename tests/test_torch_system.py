@@ -112,8 +112,16 @@ def test_system_requires_explicit_device_and_no_loop_closing():
     cfg = config_from_jax(CFG)
     with pytest.raises(TypeError):
         System(cfg)  # no device: nothing picks one silently
+    # Loop closing is ported on its synchronous schedule only: the worker
+    # thread and the asynchronous global BA raise instead of quietly
+    # running synchronously.
     with pytest.raises(NotImplementedError):
-        System(cfg, use_loop_closing=True, device="cpu")
+        System(cfg, use_loop_closing=True, async_loop=True, device="cpu")
+    slam = System(cfg, use_loop_closing=True, device="cpu")
+    assert slam.use_loop_closing and slam.gba_async is False and slam.async_loop is False
+    slam.gba_async = False
+    with pytest.raises(NotImplementedError):
+        slam.gba_async = True
 
 
 def test_fp32_policy():
