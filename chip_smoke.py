@@ -6,32 +6,48 @@ synthetic KITTI-size sequence, stereo point+line tracking with joint
 point+line local BA on a synthetic EuRoC-size sequence, and a closed
 circuit with loop closing on (detection, Sim3, correction, essential
 graph, global BA), all with synchronous local mapping — through
-``System.track_stereo``, after building the hand-written CUDA kernel
-from the sources in this checkout and holding it to its plain PyTorch
+``System.track_stereo``, after building the hand-written CUDA kernels
+from the sources in this checkout and holding each to its plain PyTorch
 version.  Run from the root of a checkout:
 
     python3 chip_smoke.py
 
 Phases (each fails loudly, and the script exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: nvcc builds csrc/patch_tiles.cu for sm_90a;
-  3. kernel vs plain: patch tiles at each of the three cells' atlas
-     shapes and feature budgets (8, 8 and 4 pyramid levels), exact
-     equality; at each, CUDA-event times of the kernel, the plain
-     version and one indexing call, the kernel's own device time, and
-     the bound from the bytes that input needs;
+  2. build: nvcc builds csrc/patch_tiles.cu, orb_describe.cu and
+     stereo_sad.cu for sm_90a, one process each, started together;
+  3. kernels vs plain, at each of the three cells' atlas shapes and
+     feature budgets (8, 8 and 4 pyramid levels), with border and
+     clamped keypoints among the inputs: patch tiles, exact equality;
+     orb_describe, angles within 1e-4 rad on >= 99.5% of keypoints,
+     >= 99% of descriptors bit-identical, median 0 bits, none above 8;
+     stereo_sad, within 1e-5 relative + 1e-2 and the same best slide on
+     >= 99.9% of rows.  At each, CUDA-event times of the kernel and the
+     plain version (and of one indexing call for patch tiles), the
+     kernel's own device time, the plain version's device time and
+     kernel count, and the bound from the bytes and operations that
+     input needs; at the first shape the host time of each wrapper when
+     it launches nothing;
   4. one frame: build_stereo_frame on the card vs its plain path on the
      CPU, held to the frame contract of tests/test_torch_frontend.py;
-  5. the slice: 60 frames, state OK, >= 3 keyframes, >= 1 local BA,
-     3 kernel launches per frame, ATE no more than 10% + 1 cm above
-     the JAX package's ATE on the same frames and schedule;
+     on the card it must launch exactly one orb_describe and one
+     stereo_sad kernel and make no [N, 32, 32] tensor; device time and
+     kernel count of the frame and of its describe and SAD stages;
+     stereo_match through the stereo_sad kernel vs through its plain
+     version;
+     extract_orb (the single-image path, which returns tiles and keeps
+     the patch-tile gather) on five images vs the CPU;
+  5. the slice: 60 frames, state OK, >= 3 keyframes, >= 1 local BA, one
+     orb_describe and one stereo_sad launch per frame and no patch-tile
+     launch, ATE no more than 10% + 1 cm above the JAX package's ATE on
+     the same frames and schedule;
   6. one line frame: build_line_features on the card vs its plain path
      on the CPU, on a EuRoC-size pair, held to the line contract of
      tests/test_tpu_parity.py, and its time per stereo pair;
   7. the point+line slice: 60 EuRoC-size frames (BASELINE config #2's
      camera and budgets), state OK, >= 3 keyframes, >= 1 joint
      point+line BA with line observations, >= 10 map lines, line
-     inliers on most frames, 3 kernel launches per frame, ATE no more
+     inliers on most frames, the same launches per frame, ATE no more
      than 10% + 1 cm above the JAX package's;
   8. profile: a torch.profiler window of frames 33-35 of phase 7's
      sequence on a fresh System, with record_function ranges around
@@ -49,7 +65,7 @@ Phases (each fails loudly, and the script exits non-zero):
      first two LM iterations, to the truth over all twelve);
  10. the loop slice: bench.py's 170-frame closed circuit with
      use_loop_closing=True, state OK, >= 1 loop closed, >= 1 global BA
-     applied (the dense joint point+line solve), 3 kernel launches per
+     applied (the dense joint point+line solve), the same launches per
      frame, ATE no more than 10% + 1 cm above the JAX package's and
      below that of the port's own run without loop closing, and the
      closing keyframe's position error seen from the loop keyframe
@@ -59,7 +75,11 @@ Phases (each fails loudly, and the script exits non-zero):
      frame, device ms of the loop closer's per-keyframe work).
 A fixed host-CPU probe is timed at the start and after each slice, and
 the seconds since the start are printed after each group of phases.
-The last line is the JSON device record.  Imports nothing of JAX.
+torch.profiler now and then returns a window with device records
+missing; such a window is taken again (a bounded number of times, then
+the run fails), and a line near the end says how many were.  The line
+before the last lists the three kernels; the last line is the JSON
+device record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -205,12 +225,27 @@ def phase_device():
 
 
 def phase_build():
-    from orb_line_slam_tpu_torch.ops import patches
+    """nvcc on every kernel source, one process each, all started together."""
+    from orb_line_slam_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
-    so = patches.build_library()
-    patches._library()
-    print(f"build: {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.2f} s")
+    built = _build.build(extra_flags=("-Xptxas", "-v"))
+    for name, (seconds, output) in built.items():
+        usage = [ln.split(":", 1)[-1].strip() for ln in output.splitlines() if "Used" in ln or "spill" in ln]
+        print(f"build: {os.path.relpath(_build.library_path(name), ROOT)} finished {seconds:.2f} s after the common start"
+              f" (ptxas: {'; '.join(usage) or 'no report'})")
+        check(_build.library_path(name).exists(), f"{name}: no library after the build")
+
+
+def cell_atlas_shape(cfg):
+    from orb_line_slam_tpu_torch.ops.image import pyramid_shapes
+
+    w = cfg.camera.width
+    return sum(s[0] for s in pyramid_shapes(cfg.camera.height, w, cfg.orb.n_levels, cfg.orb.scale_factor)), w
+
+
+def border_keypoints(h, w):
+    return np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [-7, 5], [5, -7],
+                     [w + 3, h + 3], [w // 2, h - 3], [w - 1, h // 2], [15, 15], [16, 16], [w - 17, h - 17]])
 
 
 def phase_kernel(cells):
@@ -224,18 +259,15 @@ def phase_kernel(cells):
     import torch
 
     from orb_line_slam_tpu_torch.ops import patches
-    from orb_line_slam_tpu_torch.ops.image import pyramid_shapes
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     records = []
     for name, cfg in cells:
-        w, n, levels = cfg.camera.width, cfg.orb.n_features, cfg.orb.n_levels
-        h = sum(s[0] for s in pyramid_shapes(cfg.camera.height, w, levels, cfg.orb.scale_factor))
+        (h, w), n, levels = cell_atlas_shape(cfg), cfg.orb.n_features, cfg.orb.n_levels
         img = torch.from_numpy((rng.random((h, w)) * 255).astype(np.float32)).to(dev)
         xy = np.stack([rng.integers(-20, w + 20, n), rng.integers(-20, h + 20, n)], -1)
-        border = np.array([[0, 0], [w - 1, 0], [0, h - 1], [w - 1, h - 1], [-7, 5], [5, -7],
-                           [w + 3, h + 3], [w // 2, h - 3], [w - 1, h // 2], [15, 15], [16, 16], [w - 17, h - 17]])
+        border = border_keypoints(h, w)
         xy[: len(border)] = border
         xy = torch.from_numpy(xy.astype(np.int32)).to(dev)
         out = patches.gather_patch_tiles(img, xy)
@@ -258,8 +290,7 @@ def phase_kernel(cells):
         lib_ms2 = cuda_times_ms(lambda: img[iy, ix], reps=50)
         ms2 = cuda_times_ms(lambda: patches.gather_patch_tiles(img, xy), reps=50)
         plain_ms2 = cuda_times_ms(lambda: patches.patch_tiles_reference(img, xy), reps=50)
-        own, n_k = device_ms(lambda: [patches.gather_patch_tiles(img, xy) for _ in range(20)])
-        check(n_k == 20, f"the wrapper launched {n_k} device kernels for 20 calls")
+        own = own_device_ms(lambda: patches.gather_patch_tiles(img, xy), "patch_tiles_kernel", patches)
         # The least the card could take, by bytes (the kernel computes
         # nothing but addresses): every atlas pixel that lies under some
         # tile read once, the keypoints read once, every tile written once,
@@ -272,14 +303,208 @@ def phase_kernel(cells):
         print(f"patch_tiles ({name}: atlas [{h}x{w}], {levels} levels, N={n}): exact; kernel {ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, "
               f"plain {plain_ms * 1e3:.2f}/{plain_ms2 * 1e3:.2f} us, one indexing call with prebuilt indices "
               f"{lib_ms * 1e3:.2f}/{lib_ms2 * 1e3:.2f} us per call (median of 20 CUDA-event windows of 50 calls; "
-              f"plain, kernel, library, library, kernel, plain); kernel's own device time {own / 20 * 1e3:.2f} us "
+              f"plain, kernel, library, library, kernel, plain); kernel's own device time {own * 1e3:.2f} us "
               f"(torch.profiler, mean of 20); bound {bound_ms * 1e3:.2f} us ({n_read} bytes read: "
               f"{int(covered.sum())} of {h * w} atlas pixels lie under a tile; {n_written} bytes written; "
               f"at {H100_BYTES_PER_S / 1e12:.2f} TB/s)")
         records.append({"shape": f"{name}: atlas [{h}x{w}], N={n}", "max_abs_err": err, "ms": min(ms, ms2),
                         "plain_ms": min(plain_ms, plain_ms2), "bound_ms": bound_ms, "bound_by": "bytes",
-                        "library_ms": min(lib_ms, lib_ms2), "device_ms": own / 20})
+                        "library_ms": min(lib_ms, lib_ms2), "device_ms": own})
     return {**records[0], "max_abs_err": max(r["max_abs_err"] for r in records), "by_shape": records}
+
+
+def covered_pixels(h, w, x0, y0, rows, cols):
+    """Number of [h, w] pixels under some rows x cols window with top-left
+    corner (x0[i], y0[i]) (int64 tensors on the card)."""
+    import torch
+
+    dev = x0.device
+    covered = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    ys = y0[:, None, None] + torch.arange(rows, device=dev)[None, :, None]
+    xs = x0[:, None, None] + torch.arange(cols, device=dev)[None, None, :]
+    covered[ys.expand(-1, rows, cols), xs.expand(-1, rows, cols)] = True
+    return int(covered.sum())
+
+
+def interleaved_times(kernel_fn, plain_fn):
+    """Plain, kernel, kernel, plain: each a median over 20 CUDA-event
+    windows of 50 (kernel) or 10 (plain) calls.  Returns (ms, ms2, plain_ms,
+    plain_ms2)."""
+    plain_ms = cuda_times_ms(plain_fn, reps=10)
+    ms = cuda_times_ms(kernel_fn, reps=50)
+    ms2 = cuda_times_ms(kernel_fn, reps=50)
+    plain_ms2 = cuda_times_ms(plain_fn, reps=10)
+    return ms, ms2, plain_ms, plain_ms2
+
+
+def wrapper_host_us(fn, calls=2000):
+    """Host time (us) of one call of fn, which must launch nothing: median
+    of 5 runs of `calls` calls."""
+    import torch
+
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+    return statistics.median(times)
+
+
+def phase_fused_kernels(cells):
+    """The fused describe and stereo-SAD kernels on the card at every
+    cell's atlas shape and feature budget vs their plain versions, with
+    border and clamped keypoints among the inputs.  orb_describe: angles
+    within 1e-4 rad on >= 99.5% of keypoints, >= 99% of descriptors
+    bit-identical, median Hamming distance 0, none above 8 bits (its
+    blurred tile is a float32 sum in another order than the matrix-product
+    library's).  stereo_sad: |sad - plain| <= 1e-5 plain + 1e-2 and the
+    same best slide on >= 99.9% of rows, at the whole-number centres the
+    matcher gives it and at fractional ones.  Then CUDA-event times, own
+    device time and kernel count under torch.profiler of kernel and plain
+    version, and the bound: the larger of the needed bytes at the HBM rate
+    and the needed operations at the float32 rate.  Returns the two
+    kernels-line records."""
+    import torch
+
+    from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    d_records, s_records = [], []
+    # The float operations one keypoint needs: the shift+blur is
+    # A(dy) T A(dx)^T with A(d) = wm Am + w0 A0 + wp Ap, one 9-tap band per
+    # axis.  Building the two bands (32 rows x 9 taps, 3 products and 2
+    # sums each), then two passes of 1024 outputs x 9 multiply-adds.  (The
+    # plain version and the kernel do more: three products per axis, so as
+    # to round alike.)  The quantisation, moments and comparisons are
+    # integer work beside it.
+    describe_flop = 2 * (describe.PATCH * describe.BAND_TAPS * 5) + 2 * (describe.PATCH ** 2 * describe.BAND_TAPS * 2)
+    sad_flop = 231 * 7 + 121 + 11 * (121 * 4 + 11)
+    for name, cfg in cells:
+        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
+        # An image-like atlas: noise low-passed by a 5x5 box, so that
+        # intensity centroids and SAD valleys are not pure noise.
+        noise = torch.from_numpy((rng.random((2, 1, h, w)) * 255).astype(np.float32)).to(dev)
+        atlas = torch.nn.functional.avg_pool2d(noise, 5, 1, 2, count_include_pad=False)[:, 0] * 0.7 + noise[:, 0] * 0.3
+        atlas = atlas.contiguous()
+        xy = np.stack([rng.integers(-20, w + 20, (2, n)), rng.integers(-20, h + 20, (2, n))], -1)
+        border = border_keypoints(h, w)
+        xy[:, : len(border)] = border
+        axy = torch.from_numpy(xy.astype(np.int32)).to(dev)
+        delta = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, n, 2)).astype(np.float32)).to(dev)
+        delta[:, :3] = torch.tensor([[0.0, 0.0], [0.5, -0.5], [-0.5, 0.5]], device=dev)
+
+        # --- orb_describe
+        ang, desc = describe.describe_keypoints(atlas, axy, delta)
+        ang_p, desc_p = describe.describe_reference(atlas, axy, delta)
+        torch.cuda.synchronize()
+        check(ang.shape == (2 * n,) and desc.shape == (2 * n, 32) and desc.dtype == torch.uint8
+              and bool(torch.isfinite(ang).all()), "orb_describe: wrong shapes or non-finite angles")
+        d_ang = (ang - ang_p).abs()
+        d_ang = torch.minimum(d_ang, 2 * np.pi - d_ang)
+        bits = np.unpackbits((desc ^ desc_p).cpu().numpy(), axis=1).sum(1)
+        ang_ok, same = float((d_ang < 1e-4).float().mean()), float((bits == 0).mean())
+        exact = bool(torch.equal(ang, ang_p) and torch.equal(desc, desc_p))
+        check(ang_ok >= 0.995 and same >= 0.99 and np.median(bits) == 0 and bits.max() <= 8,
+              f"orb_describe at {name} disagrees with the plain version: angles within 1e-4 rad {ang_ok:.4f}, "
+              f"descriptors identical {same:.4f}, median {np.median(bits)} bits, max {bits.max()} bits")
+        ms, ms2, plain_ms, plain_ms2 = interleaved_times(
+            lambda: describe.describe_keypoints(atlas, axy, delta), lambda: describe.describe_reference(atlas, axy, delta))
+        own = own_device_ms(lambda: describe.describe_keypoints(atlas, axy, delta), "orb_describe_kernel", describe)
+        plain_own, plain_k = device_ms(lambda: describe.describe_reference(atlas, axy, delta))
+        x0 = torch.clamp(axy[..., 0] - 15, 0, w - 32).long()
+        y0 = torch.clamp(axy[..., 1] - 15, 0, h - 32).long()
+        n_pix = sum(covered_pixels(h, w, x0[i], y0[i], 32, 32) for i in range(2))
+        bands, rot = describe._kernel_tables_on(dev)
+        n_read = n_pix * 4 + axy.numel() * 4 + delta.numel() * 4 + bands.numel() * 4 + rot.numel() * 2
+        n_written = 2 * n * 36
+        bytes_ms = (n_read + n_written) / H100_BYTES_PER_S * 1e3
+        ops_ms = 2 * n * describe_flop / H100_FP32_FLOPS * 1e3
+        print(f"orb_describe ({name}: atlas [2x{h}x{w}], N=2x{n}): angles within 1e-4 rad {ang_ok:.4f} (max diff "
+              f"{float(d_ang.max()):.2e}), descriptors identical {same:.4f}, median {np.median(bits):.0f} bits, max "
+              f"{bits.max()} bits, {'EXACTLY equal' if exact else 'not exactly equal'} to the plain version; kernel "
+              f"{ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, plain {plain_ms * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us per call (CUDA events; "
+              f"plain, kernel, kernel, plain); own device time {own * 1e3:.2f} us in 1 kernel (plain: "
+              f"{plain_own * 1e3:.1f} us in {plain_k} kernels); bound {max(bytes_ms, ops_ms) * 1e3:.2f} us: "
+              f"{n_read + n_written} bytes ({n_pix} atlas pixels under a tile) = {bytes_ms * 1e3:.2f} us at "
+              f"{H100_BYTES_PER_S / 1e12:.2f} TB/s, {2 * n * describe_flop} float32 operations = {ops_ms * 1e3:.2f} us at "
+              f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s")
+        d_records.append({"shape": f"{name}: atlas [2x{h}x{w}], N=2x{n}", "max_abs_err": float(d_ang.max()),
+                          "descriptors_identical": same, "max_bits": int(bits.max()), "exact": exact,
+                          "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+                          "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                          "library_ms": None, "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
+
+        # --- stereo_sad: whole-number centres as stereo_match gives them
+        # (a right column up to 100 px left of the keypoint, the same
+        # row), then fractional ones for the blend.
+        axy_l = axy[0]
+        cx = torch.floor(axy_l[:, 0].float() - torch.from_numpy(rng.uniform(0, 100, n).astype(np.float32)).to(dev))
+        cy = axy_l[:, 1].float().clone()
+        frac = torch.from_numpy(rng.uniform(0, 1, (2, n)).astype(np.float32)).to(dev)
+        worst = 0.0
+        for tag, (ccx, ccy) in (("whole", (cx, cy)), ("fractional", (cx + frac[0], cy + frac[1]))):
+            sad = stereo_sad.stereo_sad(atlas[0], axy_l, atlas[1], ccx.contiguous(), ccy.contiguous())
+            sad_p = stereo_sad.stereo_sad_reference(atlas[0], axy_l, atlas[1], ccx, ccy)
+            torch.cuda.synchronize()
+            check(sad.shape == (n, 11) and bool(torch.isfinite(sad).all()), "stereo_sad: wrong shape or non-finite")
+            err = (sad - sad_p).abs()
+            arg_ok = float((sad.argmin(1) == sad_p.argmin(1)).float().mean())
+            check(bool((err <= 1e-5 * sad_p + 1e-2).all()) and arg_ok >= 0.999,
+                  f"stereo_sad at {name} ({tag} centres) disagrees with the plain version: max abs err "
+                  f"{float(err.max()):.3e}, same best slide {arg_ok:.4f}")
+            worst = max(worst, float(err.max()))
+            print(f"stereo_sad ({name}, {tag} centres): max abs err {float(err.max()):.2e} on SADs up to "
+                  f"{float(sad_p.max()):.0f}, same best slide {arg_ok:.4f}, "
+                  f"{'EXACTLY equal' if torch.equal(sad, sad_p) else 'not exactly equal'}")
+        ms, ms2, plain_ms, plain_ms2 = interleaved_times(
+            lambda: stereo_sad.stereo_sad(atlas[0], axy_l, atlas[1], cx, cy),
+            lambda: stereo_sad.stereo_sad_reference(atlas[0], axy_l, atlas[1], cx, cy))
+        own = own_device_ms(lambda: stereo_sad.stereo_sad(atlas[0], axy_l, atlas[1], cx, cy), "stereo_sad_kernel",
+                            stereo_sad)
+        plain_own, plain_k = device_ms(lambda: stereo_sad.stereo_sad_reference(atlas[0], axy_l, atlas[1], cx, cy))
+        # Needed pixels: the 11x11 left windows, and with whole-number
+        # centres (all four blend weights but the first are 0) the 11x21
+        # right windows.
+        xr = torch.clamp(cx.long() - 15, 0, w - 32) + 5
+        yr = torch.clamp(cy.long() - 15, 0, h - 32) + 10
+        n_pix = covered_pixels(h, w, x0[0] + 10, y0[0] + 10, 11, 11) + covered_pixels(h, w, xr, yr, 11, 21)
+        n_bytes = n_pix * 4 + n * (8 + 4 + 4) + n * 44
+        bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+        ops_ms = n * sad_flop / H100_FP32_FLOPS * 1e3
+        print(f"stereo_sad ({name}: atlas [{h}x{w}], N={n}): kernel {ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, plain "
+              f"{plain_ms * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us per call (CUDA events; plain, kernel, kernel, plain); own "
+              f"device time {own * 1e3:.2f} us in 1 kernel (plain: {plain_own * 1e3:.1f} us in {plain_k} kernels); "
+              f"bound {max(bytes_ms, ops_ms) * 1e3:.2f} us: {n_bytes} bytes ({n_pix} atlas pixels under a window) = "
+              f"{bytes_ms * 1e3:.2f} us, {n * sad_flop} float32 operations = {ops_ms * 1e3:.2f} us")
+        s_records.append({"shape": f"{name}: atlas [{h}x{w}], N={n}", "max_abs_err": worst,
+                          "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+                          "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                          "library_ms": None, "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
+
+        if name == cells[0][0]:
+            # What a wrapper costs on the host when it launches nothing
+            # (no keypoints): argument checks, output allocation, the
+            # stream lookup and the ctypes call.
+            img0 = atlas[0]
+            none2 = torch.zeros((0, 2), dtype=torch.int32, device=dev)
+            none3 = torch.zeros((2, 0, 2), dtype=torch.int32, device=dev)
+            nof = torch.zeros((2, 0, 2), device=dev)
+            no1 = torch.zeros((0,), device=dev)
+            host = {
+                "patch_tiles": wrapper_host_us(lambda: patches.gather_patch_tiles(img0, none2)),
+                "orb_describe": wrapper_host_us(lambda: describe.describe_keypoints(atlas, none3, nof)),
+                "stereo_sad": wrapper_host_us(lambda: stereo_sad.stereo_sad(img0, none2, atlas[1], no1, no1)),
+            }
+            print("wrapper host time with no keypoints (nothing launched), us per call: "
+                  + json.dumps({k: round(v, 2) for k, v in host.items()}))
+
+    def summary(records):
+        return {**records[0], "max_abs_err": max(r["max_abs_err"] for r in records), "by_shape": records}
+
+    return summary(d_records), summary(s_records)
 
 
 def render_sequence(cfg, n_frames, scene_kw=None, step=0.25):
@@ -291,15 +516,60 @@ def render_sequence(cfg, n_frames, scene_kw=None, step=0.25):
 
 
 def phase_frame(cfg, pair):
-    """build_stereo_frame on the card vs the plain path on the CPU."""
+    """build_stereo_frame on the card vs the plain path on the CPU; on the
+    card it launches exactly one orb_describe and one stereo_sad kernel and
+    makes no [N, 32, 32] tile tensor."""
     import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
 
     from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frame
+
+    n_feat = cfg.orb.n_features
+
+    class TileWatch(TorchDispatchMode):
+        """Records every operator output shaped [>= N, ..., 32, 32]."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor) and t.dim() >= 3 and tuple(t.shape[-2:]) == (32, 32) \
+                        and t.shape[0] >= n_feat:
+                    self.seen.append((str(func), tuple(t.shape)))
+            return out
 
     l, r = (torch.from_numpy(x) for x in pair)
     fc = build_stereo_frame(l, r, cfg).numpy()
     lg, rg = l.cuda(), r.cuda()
-    fg = build_stereo_frame(lg, rg, cfg).numpy()
+    build_stereo_frame(lg, rg, cfg)
+    reset_launches()
+    with TileWatch() as watch:
+        fg = build_stereo_frame(lg, rg, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 1},
+          f"build_stereo_frame on the card launched {launches} (want one orb_describe, one stereo_sad, no patch_tiles)")
+    check(not watch.seen, f"build_stereo_frame on the card made tile tensors: {watch.seen[:3]}")
+    with TileWatch() as watch_cpu:
+        build_stereo_frame(l, r, cfg)
+    check(len(watch_cpu.seen) > 0, "the tile watch saw no tile tensor on the CPU plain path: it watches nothing")
+    stages = frame_stage_profile(cfg, lg, rg)
+    check(stages["describe_stage"]["kernels"] == 1 and stages["sad_stage"]["kernels"] == 1,
+          f"the describe and SAD stages are not one device kernel each: {stages}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_stereo_frame(lg, rg, cfg)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+    print(f"frame on the card: kernel launches {json.dumps(launches)}, no [N, 32, 32] tensor among its operator outputs "
+          f"(the CPU plain path makes {len(watch_cpu.seen)}); peak device memory of one call {peak_mb:.1f} MB above the "
+          f"resident set")
+    print("frame stages on the card, device ms and kernels per call (torch.profiler, mean of 5): " + json.dumps(stages))
+    fg = fg.numpy()
     agree = float((fc.valid == fg.valid).mean())
     both = fc.valid & fg.valid
     d_xy = float(np.abs(fc.xy[both] - fg.xy[both]).max())
@@ -317,6 +587,64 @@ def phase_frame(cfg, pair):
     print(f"front end (build_stereo_frame, 376x1241, 2000 features, 8 levels): {ms:.2f} ms/frame, "
           f"{1e3 / ms:.2f} frames/s (median of 20)")
     return 1e3 / ms
+
+
+def phase_stereo_match_kernel_vs_plain(cfg, pair):
+    """stereo_match on the card through the stereo_sad kernel vs the same
+    call through its plain version, on one real frame's features: stereo-hit
+    agreement >= 0.99 and depths within 1e-4 relative where both hit (the
+    two SADs differ only in the order of a 121-term float32 sum)."""
+    import torch
+
+    from orb_line_slam_tpu_torch.frontend import stereo
+    from orb_line_slam_tpu_torch.frontend.orb_extractor import extract_orb_stereo
+    from orb_line_slam_tpu_torch.ops.stereo_sad import stereo_sad_reference
+
+    l, r = (torch.from_numpy(x).cuda() for x in pair)
+    args = extract_orb_stereo(l, r, cfg.orb)
+    featL, atlasL, axyL, deltaL, featR, atlasR, offs = args
+    got = stereo.stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offs, cfg.camera, cfg.orb)
+    kernel_fn, stereo.stereo_sad = stereo.stereo_sad, stereo_sad_reference
+    try:
+        want = stereo.stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offs, cfg.camera, cfg.orb)
+    finally:
+        stereo.stereo_sad = kernel_fn
+    dk, dp = got.depth.cpu().numpy(), want.depth.cpu().numpy()
+    hit_agree = float(((dk > 0) == (dp > 0)).mean())
+    hit = (dk > 0) & (dp > 0)
+    rel = np.abs(dk[hit] - dp[hit]) / dp[hit]
+    print(f"stereo_match through the stereo_sad kernel vs its plain version: stereo-hit agreement {hit_agree:.4f}, "
+          f"{int(hit.sum())} common depths, worst relative difference {rel.max():.2e}")
+    check(hit_agree >= 0.99 and hit.sum() > 100 and rel.max() <= 1e-4,
+          "stereo_match through the kernel disagrees with the plain version")
+
+
+def phase_single_image(cfg, frames, n_images=5):
+    """extract_orb, the single-image entry point, on the card: it returns
+    sub-pixel-shifted tiles, so it is the path that keeps the patch-tile
+    gather (one launch per image).  Held to the CPU plain path under the
+    frame contract's keypoint and descriptor terms.  Returns the launches."""
+    import torch
+
+    from orb_line_slam_tpu_torch.frontend.orb_extractor import extract_orb
+
+    reset_launches()
+    for l, _ in frames[:n_images]:
+        fg = extract_orb(torch.from_numpy(l).cuda(), cfg.orb)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == {"patch_tiles": n_images, "orb_describe": 0, "stereo_sad": 0},
+          f"extract_orb on {n_images} images launched {launches} (want one patch_tiles per image)")
+    fc = extract_orb(torch.from_numpy(frames[n_images - 1][0]), cfg.orb)
+    vc, vg = fc.valid.numpy(), fg.valid.cpu().numpy()
+    both = vc & vg
+    d_xy = float(np.abs(fc.xy.numpy()[both] - fg.xy.cpu().numpy()[both]).max())
+    bits = np.unpackbits(fc.desc.numpy()[both] ^ fg.desc.cpu().numpy()[both], axis=1).sum(1)
+    print(f"single image (extract_orb) GPU vs CPU: {n_images} images, {launches['patch_tiles']} patch-tile launches, "
+          f"valid agreement {(vc == vg).mean():.4f}, max keypoint diff {d_xy:.2e} px, median desc bits {np.median(bits):.0f}")
+    check((vc == vg).mean() > 0.98 and d_xy < 0.51 and np.median(bits) <= 1,
+          "extract_orb on the card breaks the frame contract against the CPU plain path")
+    return launches
 
 
 def phase_bench_ba(cfg):
@@ -359,18 +687,41 @@ def phase_bench_ba(cfg):
     return ms
 
 
+KERNELS = ("patch_tiles", "orb_describe", "stereo_sad")
+
+
+def kernel_modules():
+    from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
+
+    return dict(zip(KERNELS, (patches, describe, stereo_sad)))
+
+
+def reset_launches():
+    for mod in kernel_modules().values():
+        mod.launches = 0
+
+
+def read_launches():
+    return {name: mod.launches for name, mod in kernel_modules().items()}
+
+
+def add_launches(total, part):
+    for name, n in part.items():
+        total[name] = total.get(name, 0) + n
+
+
 def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False):
-    """Drive System.track_stereo on the card over the frames, with the
+    """Drive System.track_stereo on the card over the frames, with every
     kernel's launch count set to 0 just before and read just after.
-    Returns (System, launches, fps over frames WARMUP_FRAMES.., ATE)."""
+    Returns (System, launches per kernel, fps over frames WARMUP_FRAMES..,
+    ATE)."""
     import torch
 
     from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
-    from orb_line_slam_tpu_torch.ops import patches
     from orb_line_slam_tpu_torch.pipeline.system import System
 
     slam = System(cfg, use_loop_closing=use_loop_closing, device="cuda")
-    patches.launches = 0
+    reset_launches()
     stamps = []
     for i, (l, r) in enumerate(frames):
         slam.track_stereo(l, r, timestamp=dt * i)
@@ -378,7 +729,7 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False):
         stamps.append(time.perf_counter())
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = patches.launches
+    launches = read_launches()
     traj = slam.tracker.final_trajectory()
     est = np.stack([-R.T @ t for (_, _, R, t, _) in traj])
     gt = np.stack([-R.T @ t for (R, t) in poses])
@@ -388,12 +739,15 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False):
     n_kf = int(slam.map.n_keyframes())
     host_probe(f"after the {name}")
     print(f"{name}: {len(frames)} frames, state {slam.tracking_state()}, {n_kf} keyframes, "
-          f"{slam.tracker.n_local_ba} local BAs, {launches} patch-tile launches")
+          f"{slam.tracker.n_local_ba} local BAs, kernel launches {json.dumps(launches)}")
     print(f"{name} stages: " + json.dumps(slam.tracker.timing.table(len(frames))))
     check(slam.tracking_state() == "OK", f"{name}: final state {slam.tracking_state()}")
     check(n_kf >= 3, f"{name}: only {n_kf} keyframes")
     check(slam.tracker.n_local_ba >= 1, f"{name}: no local BA ran")
-    check(launches == 3 * len(frames), f"{name}: {launches} kernel launches for {len(frames)} frames (want 3 per frame)")
+    # Two hand-written kernels per stereo pair, and no tile gather.
+    check(launches == {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": len(frames)},
+          f"{name}: kernel launches {launches} for {len(frames)} frames (want one orb_describe and one stereo_sad "
+          f"per frame and no patch_tiles)")
     return slam, launches, fps, ate
 
 
@@ -494,20 +848,166 @@ def host_times_ms(fn, n=5):
     return statistics.median(times)
 
 
-def device_ms(fn):
-    """(device-busy ms, kernels) of one call of fn under torch.profiler:
-    the sum of the device kernels' own times, whatever the host took."""
+# Profiler windows taken again because device records were missing.
+profile_retakes = 0
+MAX_RETAKES = 5
+
+
+def device_records(prof):
+    import torch
+
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profiled(fn, complete, what):
+    """Run fn under torch.profiler until complete(device records) holds,
+    and return the profile (with the window's wall time, the profiler's
+    own start and stop included, as ``window_wall_s``).  torch.profiler now and then returns a window
+    with no device records, or with one missing; such a window is taken
+    again, at most MAX_RETAKES times, then the run fails."""
+    global profile_retakes
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
+    for attempt in range(MAX_RETAKES + 1):
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(len(kern) > 0, "profiler recorded no device kernel")
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.window_wall_s = time.perf_counter() - t0
+        n = len(device_records(prof))
+        if complete(n):
+            return prof
+        profile_retakes += 1
+        print(f"profile {attempt + 1} of {what} came back with {n} device records: taken again", flush=True)
+        time.sleep(0.5)
+    fail(f"profiler: no complete window of {what} in {MAX_RETAKES + 1} attempts")
+
+
+def device_kernels(fn):
+    """The device kernel records of one call of fn under torch.profiler."""
+    fn()
+    return device_records(profiled(fn, lambda n: n > 0, "one call"))
+
+
+def device_ms(fn):
+    """(device-busy ms, kernels) of one call of fn under torch.profiler:
+    the sum of the device kernels' own times, whatever the host took."""
+    kern = device_kernels(fn)
     return sum(e.time_range.end - e.time_range.start for e in kern) / 1e3, len(kern)
+
+
+def own_device_ms(fn, name, module, calls=20):
+    """Mean own device time (ms) of the hand-written kernel `name` over
+    `calls` calls of its wrapper fn.  The wrapper's own count (`module`'s
+    `launches`) must read exactly `calls` afterwards: one launch per call.
+    The profile must hold exactly `calls` device records, all of that
+    kernel: a window that lost one is taken again, not averaged."""
+    fn()
+
+    def run():
+        module.launches = 0
+        for _ in range(calls):
+            fn()
+
+    prof = profiled(run, lambda n: n >= calls, f"{calls} calls of {name}")
+    check(module.launches == calls, f"{name}'s wrapper counted {module.launches} launches for {calls} calls")
+    kern = device_records(prof)
+    other = sorted({e.name for e in kern if name not in e.name})
+    check(not other, f"{name}'s wrapper launched other device kernels: {other[:3]}")
+    check(len(kern) == calls, f"{name}: {len(kern)} device kernels recorded for {calls} calls")
+    return sum(e.time_range.end - e.time_range.start for e in kern) / 1e3 / calls
+
+
+def labelled_ranges(ranges):
+    """Context manager: wraps each (module, function, tag) of `ranges` (a
+    module path inside the package, the name as that module holds it) in a
+    torch.profiler record_function range named tag, and puts the functions
+    back on exit."""
+    import contextlib
+    import importlib
+
+    from torch.profiler import record_function
+
+    def labelled(fn, tag):
+        def wrapper(*a, **k):
+            with record_function(tag):
+                return fn(*a, **k)
+        return wrapper
+
+    @contextlib.contextmanager
+    def patched():
+        saved = []
+        try:
+            for mod_name, fn_name, tag in ranges:
+                mod = importlib.import_module(f"orb_line_slam_tpu_torch.{mod_name}")
+                saved.append((mod, fn_name, getattr(mod, fn_name)))
+                setattr(mod, fn_name, labelled(getattr(mod, fn_name), tag))
+            yield
+        finally:
+            for mod, fn_name, fn in saved:
+                setattr(mod, fn_name, fn)
+
+    return patched()
+
+
+def range_device_times(prof, tags):
+    """From a profile taken inside labelled_ranges: (device kernels sorted
+    by start, {tag: [device us, kernels, calls]}).  A range's device time is
+    the sum of the device kernels that start inside its device interval."""
+    import bisect
+
+    dev = device_records(prof)
+    ranges = [e for e in dev if e.name in tags]
+    kern = sorted((e for e in dev if e.name not in tags and not e.name.startswith("ProfilerStep")),
+                  key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kern]
+    csum = [0.0]
+    for e in kern:
+        csum.append(csum[-1] + e.time_range.end - e.time_range.start)
+    per = {tag: [0.0, 0, 0] for tag in tags}
+    for r in ranges:
+        i = bisect.bisect_left(starts, r.time_range.start)
+        j = bisect.bisect_right(starts, r.time_range.end)
+        per[r.name][0] += csum[j] - csum[i]
+        per[r.name][1] += j - i
+        per[r.name][2] += 1
+    return kern, per
+
+
+# The stages of build_stereo_frame a profile range is opened around.
+FRAME_RANGES = (
+    ("frontend.frame", "extract_orb_stereo", "extract_orb_stereo"),
+    ("frontend.frame", "stereo_match", "stereo_match"),
+    ("frontend.orb_extractor", "describe_keypoints", "describe_stage"),
+    ("frontend.stereo", "stereo_sad", "sad_stage"),
+)
+
+
+def frame_stage_profile(cfg, lg, rg, ranges=FRAME_RANGES, n_frames=5):
+    """Device ms and kernels per build_stereo_frame call on the card (mean
+    of n_frames calls in one torch.profiler window), of the whole call
+    and of each range of `ranges`.  Another tree of this repository is
+    measured by the same function with that tree's package first on
+    sys.path and `ranges` naming its stages."""
+    import importlib
+
+    frame_mod = importlib.import_module("orb_line_slam_tpu_torch.frontend.frame")
+    tags = sorted({tag for _, _, tag in ranges})
+    with labelled_ranges(ranges):
+        for _ in range(2):
+            frame_mod.build_stereo_frame(lg, rg, cfg)
+        prof = profiled(lambda: [frame_mod.build_stereo_frame(lg, rg, cfg) for _ in range(n_frames)],
+                        lambda n: n > 0, f"{n_frames} build_stereo_frame calls")
+    kern, per = range_device_times(prof, tags)
+    busy = sum(e.time_range.end - e.time_range.start for e in kern)
+    stages = {"build_stereo_frame": {"device_ms": busy / 1e3 / n_frames, "kernels": len(kern) / n_frames}}
+    for tag in tags:
+        check(per[tag][2] >= n_frames and per[tag][2] % n_frames == 0,
+              f"stage range {tag} was entered {per[tag][2]} times in {n_frames} frames")
+        stages[tag] = {"device_ms": per[tag][0] / 1e3 / n_frames, "kernels": per[tag][1] / n_frames}
+    return stages
 
 
 def phase_loop_words(frame, k=10, depth=5):
@@ -791,7 +1291,8 @@ def phase_loop_slice(cfg, poses, frames):
         "loop_closing_ms_per_keyframe": lc_ms, "closure_gap_error_m": [gap_before, gap_after],
         "closing_event_ms": {k: closure.get(k) for k in ("detect", "sim3", "correct", "essential_graph", "gba")},
     }))
-    return launches + launches_off, fps, ate
+    add_launches(launches, launches_off)
+    return launches, fps, ate
 
 
 PROFILE_START, PROFILE_FRAMES = 33, 3
@@ -823,60 +1324,29 @@ def phase_profile(cfg, frames, cell="point+line slice", start=PROFILE_START, dt=
     fall inside), after the earlier frames unprofiled, on a fresh System.
     Device time per range is the sum of the device kernels that start
     inside the range's device interval."""
-    import bisect
-    import importlib
-
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
     from orb_line_slam_tpu_torch.pipeline.system import System
 
-    saved = []
-
-    def labelled(fn, tag):
-        def wrapper(*a, **k):
-            with record_function(tag):
-                return fn(*a, **k)
-        return wrapper
-
-    for mod_name, fn_name, tag in PROFILE_RANGES:
-        mod = importlib.import_module(f"orb_line_slam_tpu_torch.{mod_name}")
-        saved.append((mod, fn_name, getattr(mod, fn_name)))
-        setattr(mod, fn_name, labelled(getattr(mod, fn_name), tag))
-    try:
+    n = PROFILE_FRAMES
+    with labelled_ranges(PROFILE_RANGES):
         slam = System(cfg, use_loop_closing=use_loop_closing, device="cuda")
         for i in range(start):
             slam.track_stereo(*frames[i], timestamp=dt * i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for i in range(start, start + PROFILE_FRAMES):
+        nxt = [start]
+
+        def window():      # a window taken again moves on to the next frames
+            for i in range(nxt[0], nxt[0] + n):
                 slam.track_stereo(*frames[i], timestamp=dt * i)
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+            nxt[0] += n
+
+        prof = profiled(window, lambda k: k > 0, f"{n} frames of the {cell}")
+        start, wall = nxt[0] - n, prof.window_wall_s
         slam.shutdown()
-    finally:
-        for mod, fn_name, fn in saved:
-            setattr(mod, fn_name, fn)
-    n = PROFILE_FRAMES
     tags = [tag for _, _, tag in PROFILE_RANGES]
-    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ranges = [e for e in dev if e.name in tags]
-    kern = sorted((e for e in dev if e.name not in tags and not e.name.startswith("ProfilerStep")),
-                  key=lambda e: e.time_range.start)
-    starts = [e.time_range.start for e in kern]
-    csum = [0.0]
-    for e in kern:
-        csum.append(csum[-1] + e.time_range.end - e.time_range.start)
-    busy_us = csum[-1]
-    check(busy_us > 0 and ranges, "profile: no device kernels or no device ranges recorded")
-    per = dict.fromkeys(tags, 0.0)
-    calls = dict.fromkeys(tags, 0)
-    for r in ranges:
-        i = bisect.bisect_left(starts, r.time_range.start)
-        j = bisect.bisect_right(starts, r.time_range.end)
-        per[r.name] += csum[j] - csum[i]
-        calls[r.name] += 1
+    kern, stage = range_device_times(prof, tags)
+    busy_us = sum(e.time_range.end - e.time_range.start for e in kern)
+    per = {k: v[0] for k, v in stage.items()}
+    calls = {k: v[2] for k, v in stage.items()}
+    check(busy_us > 0 and any(calls.values()), "profile: no device kernels or no device ranges recorded")
     launches = sum(e.count for e in prof.key_averages()
                    if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     by_name = {}
@@ -914,18 +1384,22 @@ def main():
     check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
           "TF32 is enabled")
     phase_build()
-    metrics, launches = {}, 0
+    metrics, launches = {}, {}
     cfg, lcfg, ccfg = kitti_config(), euroc_config(), loop_config()
-    kern = phase_kernel((("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg)))
+    cells = (("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg))
+    kern = {"patch_tiles": phase_kernel(cells)}
+    kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells)
     done("phases 1-3")
     t0 = time.perf_counter()
     poses, frames = render_sequence(cfg, N_FRAMES)
     print(f"rendered {len(frames)} stereo pairs in {time.perf_counter() - t0:.1f} s (host, set-up)")
     metrics["stereo_frontend_fps"] = phase_frame(cfg, frames[0])
+    phase_stereo_match_kernel_vs_plain(cfg, frames[0])
+    add_launches(launches, phase_single_image(cfg, frames))
     metrics["local_ba_iter_ms"] = phase_bench_ba(cfg)
     n, metrics["full_pipeline_fps"], metrics["local_ba_ms_per_solve"], metrics["ate_rmse_synth_m"] = \
         phase_slice(cfg, poses, frames)
-    launches += n
+    add_launches(launches, n)
     done("phases 4-5")
     t0 = time.perf_counter()
     lposes, lframes = render_sequence(lcfg, N_FRAMES, LINE_SCENE, LINE_STEP)
@@ -933,7 +1407,7 @@ def main():
     metrics["line_frontend_ms"] = phase_line_frame(lcfg, lframes[0])
     n, metrics["lines_pipeline_fps"], metrics["joint_ba_ms_per_solve"], metrics["ate_rmse_lines_m"] = \
         phase_line_slice(lcfg, lposes, lframes)
-    launches += n
+    add_launches(launches, n)
     done("phases 6-7")
     phase_profile(lcfg, lframes)
     done("phase 8")
@@ -950,19 +1424,25 @@ def main():
     cposes, cframes = render_loop_sequence(ccfg)
     print(f"rendered {len(cframes)} stereo pairs of the loop circuit in {time.perf_counter() - t0:.1f} s (host, set-up)")
     n, metrics["loop_pipeline_fps"], metrics["ate_rmse_loop_m"] = phase_loop_slice(ccfg, cposes, cframes)
-    launches += n
+    add_launches(launches, n)
     done("phase 10, both runs of the circuit")
     # A steady window of the circuit (keyframes every third frame, the
     # loop closer's per-keyframe work inside), before the closure.
     phase_profile(ccfg, cframes, cell="loop slice", start=30, dt=0.1, use_loop_closing=True)
     done("phase 10, profile")
     print(json.dumps(metrics))
+    print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
+    # launches: orb_describe and stereo_sad over the three slices' stereo
+    # frames (phases 5, 7, 10), patch_tiles over the single-image path
+    # (phase 4), each read just after its path with the counts set to 0
+    # just before it.
+    check(all(launches.get(name, 0) > 0 for name in KERNELS), f"a kernel was never launched on its path: {launches}")
     print(json.dumps({"kernels": [{
-        "name": "patch_tiles", "route": "cuda",
-        "source": "orb_line_slam_tpu_torch/csrc/patch_tiles.cu",
+        "name": name, "route": "cuda",
+        "source": f"orb_line_slam_tpu_torch/csrc/{name}.cu",
         "replaces": "orb_line_slam_tpu/ops/pallas_patches.py:99",
-        "launches": launches, **kern,
-    }]}))
+        "launches": launches[name], **kern[name],
+    } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -19,9 +19,11 @@
 // coalesced 128-byte row, and each thread moves four rows.  The TPU
 // kernel's aligned 40 x 256 superset DMA, lane roll and 8-way row
 // select only work around Mosaic's (8, 128) alignment and are not
-// carried over.  Fusing this gather into describe (shift + blur, IC
-// moments, BRIEF) and into the stereo SAD, so that tiles never reach
-// device memory, is later work.
+// carried over.  The stereo path no longer runs this kernel: there the
+// same clamped tile is cut into shared memory and consumed in place by
+// orb_describe.cu (shift + blur, IC moments, BRIEF) and stereo_sad.cu,
+// so that tiles never reach device memory.  This gather stays for the
+// single-image extractor, which returns tiles.
 
 #include <cuda_runtime.h>
 

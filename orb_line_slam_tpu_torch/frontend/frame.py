@@ -41,8 +41,8 @@ class Frame(NamedTuple):
 
 def build_stereo_frame(img_left: torch.Tensor, img_right: torch.Tensor, cfg: SlamConfig) -> Frame:
     """Features and stereo depths of a rectified [H, W] pair (uint8 or float32)."""
-    featL, tilesL, deltaL, featR, _, atlasR, offsR = extract_orb_stereo(img_left, img_right, cfg.orb)
-    sm = stereo_match(featL, featR, tilesL, deltaL, atlasR, offsR, cfg.camera, cfg.orb)
+    featL, atlasL, axyL, deltaL, featR, atlasR, offsR = extract_orb_stereo(img_left, img_right, cfg.orb)
+    sm = stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offsR, cfg.camera, cfg.orb)
     return Frame(
         xy=undistort_points(cfg.camera, featL.xy),
         response=featL.response,

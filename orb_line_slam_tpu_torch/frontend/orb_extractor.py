@@ -1,29 +1,29 @@
 """Batched multi-level ORB extraction (the front end's hot loop 1).
 
 Port of ``orb_line_slam_tpu/frontend/orb_extractor.py`` —
-``_detect_level`` (50-89), ``shift_tiles`` (92-113), ``_shift_blur_mats``
-(155-187), ``shift_blur_tiles`` (190-211), ``extract_orb_with_tiles``
-(214-261), ``extract_orb`` (264-276) and ``extract_orb_stereo``
-(279-356).  Images are cast to float32 before any arithmetic (uint8
-wraps in torch, as ``orb_extractor.py:226,293`` cast for the same
+``_detect_level`` (50-89), ``shift_tiles`` (92-113),
+``extract_orb_with_tiles`` (214-261), ``extract_orb`` (264-276) and
+``extract_orb_stereo`` (279-356); ``shift_blur_tiles`` (155-211) lives in
+``ops/describe.py``.  Images are cast to float32 before any arithmetic
+(uint8 wraps in torch, as ``orb_extractor.py:226,293`` cast for the same
 reason).  The stereo pair runs as one [2, H, W] batch through pyramid
-and detection; patch tiles come from one kernel launch per image atlas
-(``ops/patches.py``), and shift+blur, orientation and BRIEF run once
-over both images' tiles.
+and detection, and one fused kernel launch (``ops/describe.py``) cuts
+both images' tiles, shifts and blurs them and takes orientation and
+BRIEF without writing a tile.  ``extract_orb_with_tiles`` returns tiles,
+so it keeps the patch-tile gather (``ops/patches.py``).
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import OrbConfig
 from ..ops.brief import brief_descriptors_from_tiles, ic_angle_from_tiles
+from ..ops.describe import describe_keypoints, shift_blur_tiles
 from ..ops.fast import fast_score_map, nms3x3
-from ..ops.image import _gaussian_taps, build_pyramid, pyramid_atlas
+from ..ops.image import build_pyramid, pyramid_atlas
 from ..ops.patches import gather_patch_tiles
 from ..ops.topk_grid import select_topk_grid
 
@@ -93,47 +93,6 @@ def shift_tiles(tiles: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@functools.lru_cache()
-def _shift_blur_mats(sigma: float = 2.0, radius: int = 3):
-    """Three static float32 [32, 32] matrices (B@S-, B, B@S+): the
-    row-normalized zero-padded Gaussian blur B composed with the
-    edge-clamped one-pixel shifts."""
-    k = np.asarray(_gaussian_taps(sigma, radius), np.float32)
-    n = 32
-    B = np.zeros((n, n), np.float32)
-    for i in range(n):
-        for t in range(2 * radius + 1):
-            j = i + t - radius
-            if 0 <= j < n:
-                B[i, j] = k[t]
-    B /= B.sum(axis=1, keepdims=True)
-    Sm = np.zeros((n, n), np.float32)
-    Sp = np.zeros((n, n), np.float32)
-    for i in range(n):
-        Sm[i, max(i - 1, 0)] = 1.0
-        Sp[i, min(i + 1, n - 1)] = 1.0
-    return B @ Sm, B, B @ Sp
-
-
-@functools.lru_cache(maxsize=8)
-def _shift_blur_mats_on(device: torch.device):
-    return tuple(torch.from_numpy(m).to(device) for m in _shift_blur_mats())
-
-
-def shift_blur_tiles(tiles: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
-    """Fused sub-pixel shift + normalized Gaussian blur of [N, 32, 32]
-    tiles, as batched products with the three static matrices."""
-    Am, A0, Ap = _shift_blur_mats_on(tiles.device)
-
-    def axis_weights(d):
-        return torch.clamp(-d, min=0.0), 1.0 - torch.abs(d), torch.clamp(d, min=0.0)
-
-    wmy, w0y, wpy = axis_weights(delta[:, 1][:, None, None])
-    wmx, w0x, wpx = axis_weights(delta[:, 0][:, None, None])
-    ty = wmy * (Am @ tiles) + w0y * (A0 @ tiles) + wpy * (Ap @ tiles)
-    return wmx * (ty @ Am.T) + w0x * (ty @ A0.T) + wpx * (ty @ Ap.T)
-
-
 def _detect_all_levels(levels, offs, cfg: OrbConfig):
     """Per-level detection of (batched) pyramid levels, concatenated over
     levels: (xy float level-0 coords, atlas xy int32, resp, octave,
@@ -184,21 +143,18 @@ def extract_orb(image: torch.Tensor, cfg: OrbConfig) -> FrameFeatures:
 
 
 def extract_orb_stereo(img_left: torch.Tensor, img_right: torch.Tensor, cfg: OrbConfig):
-    """Joint extraction for a stereo pair.  Returns (featL, tilesL, deltaL,
-    featR, tilesR, atlasR, offs): tilesL/R are the RAW integer-aligned
-    tiles (the stereo SAD needs them unshifted), deltaL the left
-    sub-pixel detection offsets, atlasR/offs the right pyramid atlas."""
+    """Joint extraction for a stereo pair.  Returns (featL, atlasL, axyL,
+    deltaL, featR, atlasR, offs): the two pyramid atlases with their level
+    row offsets, and the left keypoints' integer atlas coordinates and
+    sub-pixel detection offsets.  The stereo SAD cuts its raw
+    integer-aligned patches from the atlases itself; no tile tensor is
+    made here (the JAX package returns tilesL and tilesR instead)."""
     img = torch.stack([img_left, img_right]).to(torch.float32)
     levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     atlas, offs = pyramid_atlas(levels)
     xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, _level_offsets(levels), cfg)
-    tiles_raw = torch.cat([
-        gather_patch_tiles(atlas[0], axy[0].contiguous()),
-        gather_patch_tiles(atlas[1], axy[1].contiguous()),
-    ])
-    tiles_blur = shift_blur_tiles(tiles_raw, deltas.reshape(-1, 2))
-    angles = ic_angle_from_tiles(tiles_blur)
-    desc = brief_descriptors_from_tiles(tiles_blur, angles)
+    axy = axy.contiguous()
+    angles, desc = describe_keypoints(atlas, axy, deltas.contiguous())
     n = cfg.n_features
     feats = [
         FrameFeatures(
@@ -207,4 +163,4 @@ def extract_orb_stereo(img_left: torch.Tensor, img_right: torch.Tensor, cfg: Orb
         )
         for i in range(2)
     ]
-    return feats[0], tiles_raw[:n], deltas[0], feats[1], tiles_raw[n:], atlas[1], offs
+    return feats[0], atlas[0], axy[0], deltas[0], feats[1], atlas[1], offs

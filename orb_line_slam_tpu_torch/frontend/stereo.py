@@ -1,11 +1,12 @@
 """Stereo matching: row-band Hamming search + SAD sub-pixel refinement.
 
-Port of ``orb_line_slam_tpu/frontend/stereo.py`` — ``_gather_window``
-(61-87) and ``stereo_match`` (90-206): candidates in the same row band,
-±1 octave and disparity range; best Hamming match gated at 75 with
-mutual-best; an 11x11 centre-normalized SAD over a ±5 px slide at the
-left keypoint's level of the right atlas (the SAD strip is the third
-patch-tile kernel launch per frame); parabola sub-pixel fit; the
+Port of ``orb_line_slam_tpu/frontend/stereo.py`` — ``stereo_match``
+(90-206): candidates in the same row band, ±1 octave and disparity
+range; best Hamming match gated at 75 with mutual-best; an 11x11
+centre-normalized SAD over a ±5 px slide at the left keypoint's level of
+the right atlas (``ops/stereo_sad.py``, with ``_gather_window`` (61-87):
+one fused kernel launch per frame, the second after the describe
+kernel's); parabola sub-pixel fit; the
 median-deviation and distinct-minimum gates; depth = bf / disparity.
 ``SEP_MARGIN`` and ``CURVE_RATIO`` are constants here (the JAX module
 reads them from environment variables, ``stereo.py:52-53``).
@@ -19,10 +20,8 @@ import torch
 
 from ..config import CameraIntrinsics, OrbConfig
 from ..ops.hamming import hamming_matrix, knn2
-from ..ops.patches import gather_patch_tiles
+from ..ops.stereo_sad import SAD_SLIDE, stereo_sad
 
-SAD_W = 5       # half window -> 11x11
-SAD_SLIDE = 5   # +-5 px slide
 TH_STEREO = 75  # (TH_LOW + TH_HIGH)/2
 SEP_MARGIN = 0
 CURVE_RATIO = 0.8
@@ -31,27 +30,6 @@ CURVE_RATIO = 0.8
 class StereoMatch(NamedTuple):
     u_right: torch.Tensor  # float32 [N]; -1 when unmatched
     depth: torch.Tensor    # float32 [N]; -1 when unmatched
-
-
-def _gather_window(atlas, cx, cy, half_w, extra=0):
-    """[N, 2h+1, 2h+1+2*extra] bilinear windows at float centres, blended
-    from one integer-aligned 32x32 tile per keypoint."""
-    assert half_w + extra <= 10
-    xi = torch.floor(cx)
-    yi = torch.floor(cy)
-    fx = (cx - xi)[:, None, None]
-    fy = (cy - yi)[:, None, None]
-    xy = torch.stack([xi, yi], dim=-1).to(torch.int32)
-    t = gather_patch_tiles(atlas, xy)
-    blend = (
-        (1 - fy) * (1 - fx) * t[:, :-1, :-1]
-        + (1 - fy) * fx * t[:, :-1, 1:]
-        + fy * (1 - fx) * t[:, 1:, :-1]
-        + fy * fx * t[:, 1:, 1:]
-    )
-    r0 = 15 - half_w
-    c0 = 15 - half_w - extra
-    return blend[:, r0 : r0 + 2 * half_w + 1, c0 : c0 + 2 * (half_w + extra) + 1]
 
 
 def nanmedian_linear(x: torch.Tensor) -> torch.Tensor:
@@ -69,11 +47,13 @@ def nanmedian_linear(x: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 0, med, torch.full_like(med, torch.nan))
 
 
-def stereo_match(featL, featR, tilesL, deltaL, atlasR, offsR, cam: CameraIntrinsics,
+def stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offsR, cam: CameraIntrinsics,
                  orb_cfg: OrbConfig) -> StereoMatch:
     """Stereo association of left features to right features (see module
-    docstring).  tilesL: raw [N, 32, 32] left tiles at each keypoint's
-    level; atlasR/offsR: right pyramid atlas and level row offsets."""
+    docstring).  atlasL/axyL: left pyramid atlas and the keypoints' int32
+    [N, 2] atlas coordinates (in place of the JAX package's tilesL);
+    deltaL: their sub-pixel offsets; atlasR/offsR: right pyramid atlas and
+    level row offsets."""
     dev = featL.xy.device
     scales = torch.tensor(orb_cfg.level_scales, dtype=torch.float32, device=dev)
     uL, vL = featL.xy[:, 0], featL.xy[:, 1]
@@ -105,14 +85,8 @@ def stereo_match(featL, featR, tilesL, deltaL, atlasR, offsR, cam: CameraIntrins
     yl = torch.round(vL / sc)
     cy = yl + offsR[octL].to(torch.float32)
 
-    c = 15
-    patchL = tilesL[:, c - SAD_W : c + SAD_W + 1, c - SAD_W : c + SAD_W + 1]
-    patchL = patchL - patchL[:, SAD_W : SAD_W + 1, SAD_W : SAD_W + 1]
-    stripR = _gather_window(atlasR, xr0, cy, SAD_W, extra=SAD_SLIDE)   # [N, 11, 21]
-    n_off = 2 * SAD_SLIDE + 1
-    win = stripR.unfold(2, 2 * SAD_W + 1, 1).permute(0, 2, 1, 3)       # [N, 11k, 11, 11]
-    win = win - win[:, :, SAD_W : SAD_W + 1, SAD_W : SAD_W + 1]
-    sad = torch.sum(torch.abs(patchL[:, None] - win), dim=(2, 3))      # [N, 11]
+    sad = stereo_sad(atlasL, axyL, atlasR, xr0.contiguous(), cy.contiguous())   # [N, 11]
+    n_off = sad.shape[1]
 
     best_k = torch.argmin(sad, dim=1)
     s0 = sad.gather(1, torch.clamp(best_k - 1, 0, n_off - 1)[:, None])[:, 0]

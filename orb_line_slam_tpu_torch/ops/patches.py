@@ -10,24 +10,24 @@ keypoint sits at tile index (15, 15), clamped near the borders.
 ``gather_patch_tiles`` dispatches on the device of its input: a CPU
 tensor takes the plain torch version (``patch_tiles_reference``); a
 CUDA tensor launches the hand-written kernel in ``csrc/patch_tiles.cu``
-(built with nvcc for sm_90a at first use, loaded with ctypes) or raises.
-``launches`` counts kernel launches.
+(built with nvcc for sm_90a at first use and loaded with ctypes by
+``ops/_build.py``) or raises.  ``launches`` counts kernel launches.  The
+stereo path no longer writes tiles: ``ops/describe.py`` and
+``ops/stereo_sad.py`` cut the same clamped tile into shared memory and
+consume it there; this gather stays for ``extract_orb_with_tiles``,
+which returns tiles.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from . import _build
+
 PATCH = 32
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "patch_tiles.cu"
-_BUILD_DIR = _SRC.parent / "build"
-_LIB = None
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
 
 # Kernel launches since import (or since the caller last reset it).
 launches = 0
@@ -45,60 +45,16 @@ def patch_tiles_reference(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     return img[ys, xs]
 
 
-def _nvcc() -> str:
-    cand = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(cand):
-        raise RuntimeError("nvcc not found: the patch-tile kernel cannot be built")
-    return cand
-
-
-def build_library() -> Path:
-    """Compile csrc/patch_tiles.cu into a C-ABI shared library (once;
-    rebuilt when the source is newer).  Returns the library path."""
-    so = _BUILD_DIR / "libpatch_tiles.so"
-    if so.exists() and so.stat().st_mtime >= _SRC.stat().st_mtime:
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(_SRC),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build_library()))
-        fn = lib.patch_tiles_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def patch_tiles_cuda(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream (no synchronisation)."""
     global launches
     n = xy.shape[0]
     out = torch.empty((n, PATCH, PATCH), dtype=torch.float32, device=img.device)
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    with torch.cuda.device(img.device):
-        err = _library().patch_tiles_launch(
-            img.data_ptr(), img.shape[0], img.shape[1], xy.data_ptr(), n,
-            out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"patch_tiles kernel launch failed: cudaError {err}")
-    launches += 1
+    fn = _build.kernel("patch_tiles", _ARGTYPES)
+    _build.launch(fn, "patch_tiles", img.device, img.data_ptr(), img.shape[0], img.shape[1],
+                  xy.data_ptr(), n, out.data_ptr())
+    if n > 0:      # with no keypoints the C function launches nothing
+        launches += 1
     return out
 
 
