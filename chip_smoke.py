@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch + CUDA port on one GPU.
 
-Drives the port's three paths — stereo point-only tracking on a
-synthetic KITTI-size sequence, stereo point+line tracking with joint
-point+line local BA on a synthetic EuRoC-size sequence, and a closed
-circuit with loop closing on (detection, Sim3, correction, essential
-graph, global BA), all with synchronous local mapping — through
-``System.track_stereo``, after building the hand-written CUDA kernels
-from the sources in this checkout and holding each to its plain PyTorch
-version.  Run from the root of a checkout:
+Drives the port's paths — stereo point-only tracking on a synthetic
+KITTI-size sequence, stereo point+line tracking with joint point+line
+local BA on a synthetic EuRoC-size sequence, and a closed circuit with
+loop closing on (detection, Sim3, correction, essential graph, global
+BA), all on the pinned schedule that the JAX references were computed
+on (synchronous mapping, loop closing and global BA on the tracking
+thread), then bench.py's pipeline and the circuit again on the System's
+default schedule (deferred local mapping, loop detection and global BA
+on worker threads) — through ``System.track_stereo``, after building the
+hand-written CUDA kernels from the sources in this checkout and holding
+each to its plain PyTorch version.  Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -49,8 +52,8 @@ Phases (each fails loudly, and the script exits non-zero):
      point+line BA with line observations, >= 10 map lines, line
      inliers on most frames, the same launches per frame, ATE no more
      than 10% + 1 cm above the JAX package's;
-  8. profile: a torch.profiler window of frames 33-35 of phase 7's
-     sequence on a fresh System, with record_function ranges around
+  8. profile: a torch.profiler window of frames 33-35 of phase 7's own
+     run (left out of its frames/s), with record_function ranges around
      the stages: kernels and device ms per frame, device ms per range,
      the top device kernels (printed as a JSON line and a table);
   9. loop components on the card vs the same code on CPU tensors, at
@@ -69,17 +72,36 @@ Phases (each fails loudly, and the script exits non-zero):
      frame, ATE no more than 10% + 1 cm above the JAX package's and
      below that of the port's own run without loop closing, and the
      closing keyframe's position error seen from the loop keyframe
-     smaller after the closure than before it; then a torch.profiler
-     window of frames 30-32 of the
-     circuit with loop closing on (kernels, device ms and idle share per
-     frame, device ms of the loop closer's per-keyframe work).
+     smaller after the closure than before it; a torch.profiler window
+     of frames 30-32 of the run with loop closing on, as in phase 8
+     (kernels, device ms and idle share per frame, device ms of the loop
+     closer's per-keyframe work);
+ 11. the shipping schedule, System(cfg, device="cuda") as a user makes
+     it: (a) bench.py::_bench_pipeline (the KITTI camera, 2000 features,
+     8 levels, lines on, loop closing on; phase 5's 60 frames; frames/s
+     over frames 12-59 as full_pipeline_fps), state OK, >= 3 keyframes,
+     >= 1 local BA, the same launches per frame, ATE within
+     max(1.25 x, + 2 cm) of phase 5's; (b) phase 10's circuit: state OK,
+     >= 1 loop detected on the loop-closing worker and corrected on the
+     tracking thread, >= 1 global BA solved on the global-BA worker and
+     applied by poll_global_ba, ATE within max(1.25 x, + 2 cm) of phase
+     10's pinned run (tests/test_loop_closure_e2e.py's bound); for
+     both, the frames from each deferred local BA's pack to its apply.
+Phases 5, 7, 8 and 10 pin the schedule the JAX references were computed
+on (System(..., async_loop=False), gba_async = False,
+tracker.async_mapping = False).  Every slice run prints the tracking thread's per-frame host ms (p50,
+p90, max; the tracking thread's stream synchronised after each frame,
+not the device, whose other streams carry the workers' solves), the
+local BAs applied, skipped and discarded as stale, and each worker's
+busy seconds.
 A fixed host-CPU probe is timed at the start and after each slice, and
 the seconds since the start are printed after each group of phases.
 torch.profiler now and then returns a window with device records
 missing; such a window is taken again (a bounded number of times, then
 the run fails), and a line near the end says how many were.  The line
-before the last lists the three kernels; the last line is the JSON
-device record.  Imports nothing of JAX.
+before the last lists the three kernels, with their launches over
+phases 4, 5, 7, 10 and 11; the last line is the JSON device record.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -90,6 +112,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 
@@ -172,6 +195,14 @@ def kitti_config():
                            width=1241, height=376)
     return SlamConfig(camera=cam, orb=OrbConfig(n_features=2000, n_levels=8),
                       lines=LineConfig(enabled=False))
+
+
+def bench_pipeline_config():
+    """bench.py::_bench_pipeline's configuration: the KITTI camera,
+    OrbConfig(2000, 8), the default LineConfig (lines on) and MapConfig."""
+    from orb_line_slam_tpu_torch.config import OrbConfig, SlamConfig
+
+    return SlamConfig(camera=kitti_config().camera, orb=OrbConfig(n_features=2000, n_levels=8))
 
 
 def euroc_config():
@@ -710,23 +741,41 @@ def add_launches(total, part):
         total[name] = total.get(name, 0) + n
 
 
-def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False):
+def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=False, warmup=WARMUP_FRAMES,
+              window=None):
     """Drive System.track_stereo on the card over the frames, with every
-    kernel's launch count set to 0 just before and read just after.
-    Returns (System, launches per kernel, fps over frames WARMUP_FRAMES..,
-    ATE)."""
+    kernel's launch count set to 0 just before and read just after: on
+    the pinned schedule, or with shipping=True on the System's defaults.
+    The tracking thread's stream is synchronised after each frame (not
+    the device: the workers' solves run on their own streams).  A
+    ProfileWindow `window` profiles a few frames of the run; they are left
+    out of its frames/s and per-frame times.  Returns (System, launches
+    per kernel, fps over frames warmup.., ATE, the per-frame host ms
+    {p50, p90, max} over the same frames)."""
     import torch
 
     from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
     from orb_line_slam_tpu_torch.pipeline.system import System
 
-    slam = System(cfg, use_loop_closing=use_loop_closing, device="cuda")
+    slam = System(cfg, use_loop_closing=use_loop_closing, device="cuda") if shipping else \
+        System(cfg, use_loop_closing=use_loop_closing, async_loop=False, device="cuda")
+    if not shipping:
+        slam.gba_async = False
+        slam.tracker.async_mapping = False
+    check(slam.tracker.async_mapping == slam.async_loop == slam.gba_async == shipping,
+          f"{name}: the System's schedule is not the one asked for")
+    stream = torch.cuda.current_stream()
     reset_launches()
-    stamps = []
+    frame_ms = []
     for i, (l, r) in enumerate(frames):
+        if window is not None:
+            window.before(i)
+        t0 = time.perf_counter()
         slam.track_stereo(l, r, timestamp=dt * i)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
+        stream.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        if window is not None:
+            window.after(i, frame_ms[-1])
     slam.shutdown()
     torch.cuda.synchronize()
     launches = read_launches()
@@ -735,20 +784,40 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False):
     gt = np.stack([-R.T @ t for (R, t) in poses])
     check(np.isfinite(est).all() and est.shape == gt.shape, f"{name}: trajectory not finite / wrong shape {est.shape}")
     ate = float(ate_rmse(est, gt, align=True))
-    fps = (len(frames) - WARMUP_FRAMES) / (stamps[-1] - stamps[WARMUP_FRAMES - 1])
+    profiled_frames = window.frames if window is not None else set()
+    steady = np.asarray([ms for i, ms in enumerate(frame_ms) if i >= warmup and i not in profiled_frames])
+    fps = len(steady) / (steady.sum() / 1e3)
+    per_frame = {"p50": float(np.percentile(steady, 50)), "p90": float(np.percentile(steady, 90)),
+                 "max": float(steady.max())}
     n_kf = int(slam.map.n_keyframes())
+    tr = slam.tracker
+    lags = tr.ba_lag_frames
+    lag_hist = {int(k): int(v) for k, v in zip(*np.unique(lags, return_counts=True))}
     host_probe(f"after the {name}")
     print(f"{name}: {len(frames)} frames, state {slam.tracking_state()}, {n_kf} keyframes, "
-          f"{slam.tracker.n_local_ba} local BAs, kernel launches {json.dumps(launches)}")
-    print(f"{name} stages: " + json.dumps(slam.tracker.timing.table(len(frames))))
+          f"{tr.n_local_ba} local BAs applied, {tr.n_ba_skipped} skipped, {tr.n_ba_stale} discarded as stale, "
+          f"kernel launches {json.dumps(launches)}")
+    print(f"{name} ({'shipping' if shipping else 'pinned'} schedule): tracking thread's host ms per frame over frames "
+          f"{warmup}-{len(frames) - 1}" + (f" but the {len(profiled_frames)} profiled" if profiled_frames else "")
+          + f": p50 {per_frame['p50']:.1f}, p90 {per_frame['p90']:.1f}, max {per_frame['max']:.1f}; worker busy s "
+          f"{json.dumps({k: round(v, 3) for k, v in slam.worker_busy_s().items()})}")
+    if shipping:
+        # The deferred BA's lag: frames from its pack to its apply.  A BA
+        # still pending keeps _need_keyframe's mapping-idle clause off, so
+        # a lag of 2+ frames thins out keyframes (ROADMAP Queue 3).
+        print(f"{name}: {len(lags)} deferred local BAs applied, frames from pack to apply {json.dumps(lag_hist)}, "
+              f"max {max(lags, default=0)}, {sum(g <= 1 for g in lags)} of {len(lags)} within one frame")
+    print(f"{name} stages: " + json.dumps(tr.timing.table(len(frames))))
+    if window is not None:
+        window.report()
     check(slam.tracking_state() == "OK", f"{name}: final state {slam.tracking_state()}")
     check(n_kf >= 3, f"{name}: only {n_kf} keyframes")
-    check(slam.tracker.n_local_ba >= 1, f"{name}: no local BA ran")
+    check(tr.n_local_ba >= 1, f"{name}: no local BA was applied")
     # Two hand-written kernels per stereo pair, and no tile gather.
     check(launches == {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": len(frames)},
           f"{name}: kernel launches {launches} for {len(frames)} frames (want one orb_describe and one stereo_sad "
           f"per frame and no patch_tiles)")
-    return slam, launches, fps, ate
+    return slam, launches, fps, ate, per_frame
 
 
 def check_ate(name, ate, ref):
@@ -760,7 +829,7 @@ def check_ate(name, ate, ref):
 
 
 def phase_slice(cfg, poses, frames):
-    slam, launches, fps, ate = run_slice(cfg, poses, frames, "slice", 0.1)
+    slam, launches, fps, ate, _ = run_slice(cfg, poses, frames, "slice", 0.1)
     ba = slam.tracker.timing.table().get("local_ba", {"ms_per_call": float("nan")})
     print(f"slice: {fps:.2f} frames/s steady state (frames {WARMUP_FRAMES}-{len(frames) - 1}), "
           f"{ba['ms_per_call']:.1f} ms per local BA, ATE {ate:.5f} m "
@@ -804,7 +873,10 @@ def phase_line_frame(cfg, pair):
 
 
 def phase_line_slice(cfg, poses, frames):
-    slam, launches, fps, ate = run_slice(cfg, poses, frames, "point+line slice", 0.05)
+    """Phase 7, and phase 8: its profile window (frames 33-35: keyframe 34
+    and its joint BA fall inside)."""
+    slam, launches, fps, ate, _ = run_slice(cfg, poses, frames, "point+line slice", 0.05,
+                                            window=ProfileWindow("point+line slice"))
     tr = slam.tracker
     n_lines = int(slam.map.ln_valid.sum())
     tracked = [s for s in tr.stats if s["state"] == "OK"]
@@ -853,16 +925,43 @@ profile_retakes = 0
 MAX_RETAKES = 5
 
 
+class DeviceRecord(NamedTuple):
+    name: str
+    start: float     # us from the trace's start
+    end: float
+    stream: int
+
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
 def device_records(prof):
+    """The device records of a profile (kernels, copies and the device side
+    of record_function ranges), read once from the profiler's raw events,
+    with the count of kernel-launch calls as ``prof.launch_calls``.
+    torch.profiler's own ``events()`` first builds a tree of every host and
+    device event, which took about a minute for a window of three tracked
+    frames."""
     import torch
 
-    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not hasattr(prof, "device_records"):
+        raw = prof.profiler.kineto_results
+        t0, cuda = raw.trace_start_ns(), torch.autograd.DeviceType.CUDA
+        recs, launches = [], 0
+        for e in raw.events():
+            if e.device_type() == cuda:
+                start = e.start_ns() - t0
+                recs.append(DeviceRecord(e.name(), start / 1e3, (start + e.duration_ns()) / 1e3,
+                                         e.device_resource_id()))
+            elif e.name() in LAUNCH_CALLS:
+                launches += 1
+        prof.device_records, prof.launch_calls = recs, launches
+    return prof.device_records
 
 
 def profiled(fn, complete, what):
     """Run fn under torch.profiler until complete(device records) holds,
-    and return the profile (with the window's wall time, the profiler's
-    own start and stop included, as ``window_wall_s``).  torch.profiler now and then returns a window
+    and return the profile.  torch.profiler now and then returns a window
     with no device records, or with one missing; such a window is taken
     again, at most MAX_RETAKES times, then the run fails."""
     global profile_retakes
@@ -871,11 +970,9 @@ def profiled(fn, complete, what):
 
     for attempt in range(MAX_RETAKES + 1):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        prof.window_wall_s = time.perf_counter() - t0
         n = len(device_records(prof))
         if complete(n):
             return prof
@@ -895,7 +992,7 @@ def device_ms(fn):
     """(device-busy ms, kernels) of one call of fn under torch.profiler:
     the sum of the device kernels' own times, whatever the host took."""
     kern = device_kernels(fn)
-    return sum(e.time_range.end - e.time_range.start for e in kern) / 1e3, len(kern)
+    return sum(e.end - e.start for e in kern) / 1e3, len(kern)
 
 
 def own_device_ms(fn, name, module, calls=20):
@@ -917,7 +1014,7 @@ def own_device_ms(fn, name, module, calls=20):
     other = sorted({e.name for e in kern if name not in e.name})
     check(not other, f"{name}'s wrapper launched other device kernels: {other[:3]}")
     check(len(kern) == calls, f"{name}: {len(kern)} device kernels recorded for {calls} calls")
-    return sum(e.time_range.end - e.time_range.start for e in kern) / 1e3 / calls
+    return sum(e.end - e.start for e in kern) / 1e3 / calls
 
 
 def labelled_ranges(ranges):
@@ -961,15 +1058,15 @@ def range_device_times(prof, tags):
     dev = device_records(prof)
     ranges = [e for e in dev if e.name in tags]
     kern = sorted((e for e in dev if e.name not in tags and not e.name.startswith("ProfilerStep")),
-                  key=lambda e: e.time_range.start)
-    starts = [e.time_range.start for e in kern]
+                  key=lambda e: e.start)
+    starts = [e.start for e in kern]
     csum = [0.0]
     for e in kern:
-        csum.append(csum[-1] + e.time_range.end - e.time_range.start)
+        csum.append(csum[-1] + e.end - e.start)
     per = {tag: [0.0, 0, 0] for tag in tags}
     for r in ranges:
-        i = bisect.bisect_left(starts, r.time_range.start)
-        j = bisect.bisect_right(starts, r.time_range.end)
+        i = bisect.bisect_left(starts, r.start)
+        j = bisect.bisect_right(starts, r.end)
         per[r.name][0] += csum[j] - csum[i]
         per[r.name][1] += j - i
         per[r.name][2] += 1
@@ -1001,7 +1098,7 @@ def frame_stage_profile(cfg, lg, rg, ranges=FRAME_RANGES, n_frames=5):
         prof = profiled(lambda: [frame_mod.build_stereo_frame(lg, rg, cfg) for _ in range(n_frames)],
                         lambda n: n > 0, f"{n_frames} build_stereo_frame calls")
     kern, per = range_device_times(prof, tags)
-    busy = sum(e.time_range.end - e.time_range.start for e in kern)
+    busy = sum(e.end - e.start for e in kern)
     stages = {"build_stereo_frame": {"device_ms": busy / 1e3 / n_frames, "kernels": len(kern) / n_frames}}
     for tag in tags:
         check(per[tag][2] >= n_frames and per[tag][2] % n_frames == 0,
@@ -1256,7 +1353,10 @@ def phase_loop_slice(cfg, poses, frames):
 
     loop_closing.LoopCloser._correct = recorded_correct
     try:
-        slam, launches, fps, ate = run_slice(cfg, poses, frames, "loop slice", 0.1, use_loop_closing=True)
+        # A steady window of the circuit (keyframes every third frame, the
+        # loop closer's per-keyframe work inside), before the closure.
+        slam, launches, fps, ate, per_frame = run_slice(cfg, poses, frames, "loop slice", 0.1, use_loop_closing=True,
+                                                        window=ProfileWindow("loop slice", start=30))
     finally:
         loop_closing.LoopCloser._correct = correct
     lc = slam.loop_closer
@@ -1267,7 +1367,7 @@ def phase_loop_slice(cfg, poses, frames):
     n_kf = int(slam.map.n_keyframes())
     tt = slam.tracker.timing.table()
     lc_ms = tt["loop_closing"]["ms_per_call"]
-    slam_off, launches_off, fps_off, ate_off = run_slice(cfg, poses, frames, "loop slice, loop closing off", 0.1)
+    slam_off, launches_off, fps_off, ate_off, _ = run_slice(cfg, poses, frames, "loop slice, loop closing off", 0.1)
     check(slam_off.n_loops_closed == 0, "loop closing off, yet a loop closed")
     closure = lc.closure_ms[0]
     gap_before, gap_after = gaps[0]
@@ -1289,10 +1389,76 @@ def phase_loop_slice(cfg, poses, frames):
         "ate_rmse_loop_m": ate, "ate_synth_noloop_m": ate_off, "ate_synth_loops": slam.n_loops_closed,
         "ate_synth_keyframes": n_kf, "loop_pipeline_fps": fps, "noloop_pipeline_fps": fps_off,
         "loop_closing_ms_per_keyframe": lc_ms, "closure_gap_error_m": [gap_before, gap_after],
+        "loop_frame_host_ms": per_frame,
         "closing_event_ms": {k: closure.get(k) for k in ("detect", "sim3", "correct", "essential_graph", "gba")},
     }))
     add_launches(launches, launches_off)
     return launches, fps, ate
+
+
+def phase_shipping_pipeline(poses, frames, pinned_ate):
+    """Phase 11 (a): bench.py::_bench_pipeline on the card: System(cfg,
+    device="cuda") with bench.py's configuration over phase 5's 60
+    frames, frames/s over frames 12-59 (bench.py's 12 warm-up frames).
+    Its ATE is held to phase 5's pinned point-only run of the same frames
+    by tests/test_loop_closure_e2e.py's inequality."""
+    slam, launches, fps, ate, per_frame = run_slice(bench_pipeline_config(), poses, frames, "shipping pipeline",
+                                                    0.1, use_loop_closing=True, shipping=True, warmup=12)
+    bound = max(1.25 * pinned_ate, pinned_ate + 0.02)
+    print(f"shipping pipeline (bench.py's full_pipeline_fps): {fps:.2f} frames/s over frames 12-{len(frames) - 1}, "
+          f"ATE {ate:.5f} m (bound {bound:.5f} m from phase 5's {pinned_ate:.5f} m), "
+          f"{slam.n_loops_closed} loops, map lines {int(slam.map.ln_valid.sum())}")
+    check(ate <= bound, f"shipping pipeline: ATE {ate:.5f} m above {bound:.5f} m")
+    check(int(slam.map.ln_valid.sum()) > 0, "shipping pipeline: lines are on, yet the map holds no line")
+    return launches, fps, per_frame, ate
+
+
+def phase_shipping_circuit(poses, frames, pinned_ate):
+    """Phase 11 (b): phase 10's circuit under System(ccfg,
+    device="cuda") defaults.  The loop must be detected on the
+    loop-closing worker and corrected on the tracking thread, a global BA
+    solved on the global-BA worker and applied by poll_global_ba (at a
+    keyframe event or at shutdown), and the ATE stay within
+    max(1.25 x, + 2 cm) of phase 10's pinned run."""
+    import threading
+
+    from orb_line_slam_tpu_torch.loop import loop_closing
+
+    cls = loop_closing.LoopCloser
+    seen = {"_compute_sim3": set(), "_correct": set(), "_solve_gba": set(), "_apply_gba": set()}
+    saved = {name: getattr(cls, name) for name in seen}
+
+    def on_thread(name, fn):
+        def wrapper(self, *a, **k):
+            seen[name].add(threading.current_thread().name)
+            return fn(self, *a, **k)
+        return wrapper
+
+    for name, fn in saved.items():
+        setattr(cls, name, on_thread(name, fn))
+    try:
+        slam, launches, fps, ate, per_frame = run_slice(loop_config(), poses, frames, "shipping circuit", 0.1,
+                                                        use_loop_closing=True, shipping=True)
+    finally:
+        for name, fn in saved.items():
+            setattr(cls, name, fn)
+    lc = slam.loop_closer
+    bound = max(1.25 * pinned_ate, pinned_ate + 0.02)
+    print(f"shipping circuit: {slam.n_loops_closed} loop(s) closed at keyframe(s) {[c['kf'] for c in lc.closure_ms]}, "
+          f"{lc.n_gba_applied} global BA applied ({lc.last_gba_solver}; {lc.n_gba_superseded} superseded), "
+          f"{int(slam.map.n_keyframes())} keyframes, {fps:.2f} frames/s (frames {WARMUP_FRAMES}-{len(frames) - 1}), "
+          f"ATE {ate:.5f} m (bound {bound:.5f} m from phase 10's pinned {pinned_ate:.5f} m); threads: "
+          + json.dumps({k: sorted(v) for k, v in seen.items()}))
+    print("shipping circuit loop closer stages: " + json.dumps(lc.timing.table()) + "; closures "
+          + json.dumps(lc.closure_ms))
+    check(slam.n_loops_closed >= 1 and lc.async_detect, "shipping circuit: no loop closed")
+    check(seen["_compute_sim3"] == {"loop-closing_0"} and seen["_correct"] == {"MainThread"},
+          f"shipping circuit: the loop was not detected on the worker and corrected on the tracking thread: {seen}")
+    check(lc.gba_async and lc.n_gba_applied >= 1 and seen["_solve_gba"] == {"global-ba_0"}
+          and seen["_apply_gba"] == {"MainThread"},
+          f"shipping circuit: no global BA solved on its worker and applied by poll_global_ba: {seen}")
+    check(ate <= bound, f"shipping circuit: ATE {ate:.5f} m above {bound:.5f} m")
+    return launches, fps, per_frame, ate, slam.n_loops_closed
 
 
 PROFILE_START, PROFILE_FRAMES = 33, 3
@@ -1318,53 +1484,88 @@ PROFILE_RANGES = (
 )
 
 
-def phase_profile(cfg, frames, cell="point+line slice", start=PROFILE_START, dt=0.05, use_loop_closing=False):
-    """torch.profiler over PROFILE_FRAMES frames from `start` of a
-    slice's sequence (phase 7's by default: keyframe 34 and its joint BA
-    fall inside), after the earlier frames unprofiled, on a fresh System.
-    Device time per range is the sum of the device kernels that start
-    inside the range's device interval."""
-    from orb_line_slam_tpu_torch.pipeline.system import System
+class ProfileWindow:
+    """A torch.profiler window over PROFILE_FRAMES frames of a slice run,
+    from frame `start`, with the PROFILE_RANGES stages labelled:
+    ``run_slice(..., window=ProfileWindow(...))`` profiles its own run, so
+    no second run repeats the frames before the window.  The window's
+    frames are left out of the run's frames/s and per-frame times.  A
+    window that comes back without device records is taken again over
+    the next frames, at most MAX_RETAKES times.  Device time per range is
+    the sum of the device kernels that start inside the range's device
+    interval."""
 
-    n = PROFILE_FRAMES
-    with labelled_ranges(PROFILE_RANGES):
-        slam = System(cfg, use_loop_closing=use_loop_closing, device="cuda")
-        for i in range(start):
-            slam.track_stereo(*frames[i], timestamp=dt * i)
-        nxt = [start]
+    def __init__(self, cell, start=PROFILE_START):
+        self.cell, self.start, self.n = cell, start, PROFILE_FRAMES
+        self.frames, self.prof, self.wall_ms, self._open = set(), None, 0.0, None
 
-        def window():      # a window taken again moves on to the next frames
-            for i in range(nxt[0], nxt[0] + n):
-                slam.track_stereo(*frames[i], timestamp=dt * i)
-            nxt[0] += n
+    def before(self, i):
+        """Called before frame i is tracked: opens the window at its start."""
+        import contextlib
 
-        prof = profiled(window, lambda k: k > 0, f"{n} frames of the {cell}")
-        start, wall = nxt[0] - n, prof.window_wall_s
-        slam.shutdown()
-    tags = [tag for _, _, tag in PROFILE_RANGES]
-    kern, stage = range_device_times(prof, tags)
-    busy_us = sum(e.time_range.end - e.time_range.start for e in kern)
-    per = {k: v[0] for k, v in stage.items()}
-    calls = {k: v[2] for k, v in stage.items()}
-    check(busy_us > 0 and any(calls.values()), "profile: no device kernels or no device ranges recorded")
-    launches = sum(e.count for e in prof.key_averages()
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    by_name = {}
-    for e in kern:
-        d = by_name.setdefault(e.name, [0.0, 0])
-        d[0] += e.time_range.end - e.time_range.start
-        d[1] += 1
-    print(json.dumps({"profile": {
-        "cell": cell, "frames": f"{start}-{start + n - 1}", "wall_ms_per_frame_profiled": wall * 1e3 / n,
-        "device_busy_ms_per_frame": busy_us / 1e3 / n, "kernels_per_frame": len(kern) / n,
-        "kernel_launch_calls_per_frame": launches / n, "device_idle_share_profiled": 1 - busy_us / 1e6 / wall,
-        "range_device_ms_per_frame": {k: v / 1e3 / n for k, v in per.items()},
-        "range_device_ms_per_call": {k: (per[k] / 1e3 / calls[k] if calls[k] else None) for k in tags},
-        "range_calls": calls,
-        "range_share_of_busy": {k: v / busy_us for k, v in per.items()},
-    }}))
-    for name, (d, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
-        print(f"profile top kernel ({cell}): {d / 1e3 / n:8.3f} ms/frame {c / n:8.1f} calls/frame  {name[:110]}")
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.prof is None and self._open is None and i == self.start:
+            torch.cuda.synchronize()
+            self._open = contextlib.ExitStack()
+            self._open.enter_context(labelled_ranges(PROFILE_RANGES))
+            self._prof = self._open.enter_context(profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            self.wall_ms = 0.0
+        if self._open is not None:
+            self.frames.add(i)
+
+    def after(self, i, frame_ms):
+        """Called after frame i (its host ms): closes the window at its end."""
+        global profile_retakes
+        import torch
+
+        if self._open is None:
+            return
+        self.wall_ms += frame_ms
+        if i < self.start + self.n - 1:
+            return
+        torch.cuda.synchronize()
+        self._open.close()
+        self._open = None
+        n = len(device_records(self._prof))
+        if n > 0:
+            self.prof = self._prof
+            return
+        profile_retakes += 1
+        check(profile_retakes <= MAX_RETAKES, f"profiler: no complete window of the {self.cell}")
+        print(f"profile of frames {self.start}-{i} of the {self.cell} came back with {n} device records: "
+              f"taken again", flush=True)
+        self.start = i + 1
+
+    def report(self):
+        check(self.prof is not None, f"profile: the {self.cell} ended before a complete window")
+        n, start, prof = self.n, self.start, self.prof
+        tags = [tag for _, _, tag in PROFILE_RANGES]
+        kern, stage = range_device_times(prof, tags)
+        busy_us = sum(e.end - e.start for e in kern)
+        per = {k: v[0] for k, v in stage.items()}
+        calls = {k: v[2] for k, v in stage.items()}
+        check(busy_us > 0 and any(calls.values()), "profile: no device kernels or no device ranges recorded")
+        by_name, by_stream = {}, {}
+        for e in kern:
+            d = by_name.setdefault(e.name, [0.0, 0])
+            d[0] += e.end - e.start
+            d[1] += 1
+            by_stream[str(e.stream)] = by_stream.get(str(e.stream), 0) + 1
+        print(json.dumps({"profile": {
+            "cell": self.cell, "frames": f"{start}-{start + n - 1}", "wall_ms_per_frame_profiled": self.wall_ms / n,
+            "device_busy_ms_per_frame": busy_us / 1e3 / n, "kernels_per_frame": len(kern) / n,
+            "kernel_launch_calls_per_frame": prof.launch_calls / n,
+            "device_idle_share_profiled": 1 - busy_us / 1e3 / self.wall_ms,
+            "kernels_per_frame_by_stream": {k: v / n for k, v in by_stream.items()},
+            "range_device_ms_per_frame": {k: v / 1e3 / n for k, v in per.items()},
+            "range_device_ms_per_call": {k: (per[k] / 1e3 / calls[k] if calls[k] else None) for k in tags},
+            "range_calls": calls,
+            "range_share_of_busy": {k: v / busy_us for k, v in per.items()},
+        }}))
+        for name, (d, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
+            print(f"profile top kernel ({self.cell}): {d / 1e3 / n:8.3f} ms/frame {c / n:8.1f} calls/frame  {name[:110]}")
 
 
 def main():
@@ -1397,7 +1598,7 @@ def main():
     phase_stereo_match_kernel_vs_plain(cfg, frames[0])
     add_launches(launches, phase_single_image(cfg, frames))
     metrics["local_ba_iter_ms"] = phase_bench_ba(cfg)
-    n, metrics["full_pipeline_fps"], metrics["local_ba_ms_per_solve"], metrics["ate_rmse_synth_m"] = \
+    n, metrics["points_pipeline_fps"], metrics["local_ba_ms_per_solve"], metrics["ate_rmse_synth_m"] = \
         phase_slice(cfg, poses, frames)
     add_launches(launches, n)
     done("phases 4-5")
@@ -1408,9 +1609,7 @@ def main():
     n, metrics["lines_pipeline_fps"], metrics["joint_ba_ms_per_solve"], metrics["ate_rmse_lines_m"] = \
         phase_line_slice(lcfg, lposes, lframes)
     add_launches(launches, n)
-    done("phases 6-7")
-    phase_profile(lcfg, lframes)
-    done("phase 8")
+    done("phases 6-8")
     from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frame
 
     frame = build_stereo_frame(*(torch.from_numpy(x).cuda() for x in frames[0]), cfg)
@@ -1425,15 +1624,18 @@ def main():
     print(f"rendered {len(cframes)} stereo pairs of the loop circuit in {time.perf_counter() - t0:.1f} s (host, set-up)")
     n, metrics["loop_pipeline_fps"], metrics["ate_rmse_loop_m"] = phase_loop_slice(ccfg, cposes, cframes)
     add_launches(launches, n)
-    done("phase 10, both runs of the circuit")
-    # A steady window of the circuit (keyframes every third frame, the
-    # loop closer's per-keyframe work inside), before the closure.
-    phase_profile(ccfg, cframes, cell="loop slice", start=30, dt=0.1, use_loop_closing=True)
-    done("phase 10, profile")
+    done("phase 10")
+    n, metrics["full_pipeline_fps"], metrics["full_pipeline_frame_host_ms"], metrics["ate_rmse_pipeline_m"] = \
+        phase_shipping_pipeline(poses, frames, metrics["ate_rmse_synth_m"])
+    add_launches(launches, n)
+    n, metrics["ship_loop_pipeline_fps"], metrics["ship_loop_frame_host_ms"], metrics["ate_rmse_ship_m"], \
+        metrics["ate_ship_loops"] = phase_shipping_circuit(cposes, cframes, metrics["ate_rmse_loop_m"])
+    add_launches(launches, n)
+    done("phase 11")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
-    # launches: orb_describe and stereo_sad over the three slices' stereo
-    # frames (phases 5, 7, 10), patch_tiles over the single-image path
+    # launches: orb_describe and stereo_sad over the slices' stereo frames
+    # (phases 5, 7, 10 and 11), patch_tiles over the single-image path
     # (phase 4), each read just after its path with the counts set to 0
     # just before it.
     check(all(launches.get(name, 0) > 0 for name in KERNELS), f"a kernel was never launched on its path: {launches}")

@@ -1,19 +1,36 @@
 """Loop detection + correction orchestration.
 
-Port of ``orb_line_slam_tpu/loop/loop_closing.py`` on its synchronous
-schedule: per-keyframe BoW candidate detection with the
-3-consecutive-keyframe covisibility consistency, Sim3 computation
-(batched RANSAC + guided matching + refinement), CorrectLoop (Sim3
-propagation over the covisible group, landmark fuse, essential-graph
-optimization, global BA).  Ported: ``LoopEdge`` (96-107), ``__init__``
-with the cull listener (110-168, 270-277), ``process_keyframe`` on its
-synchronous branch (280-302), ``flush`` (399-401), ``_process_resolved``
-(403-426), ``_covisible_set``/``_detect`` (429-474), ``_compute_sim3``
-(477-544), ``_refine_sim3`` (547-643), ``_correct`` (646-769),
-``_optimize_essential_graph`` (772-939), ``run_global_ba``,
+Port of ``orb_line_slam_tpu/loop/loop_closing.py``: per-keyframe BoW
+candidate detection with the 3-consecutive-keyframe covisibility
+consistency, Sim3 computation (batched RANSAC + guided matching +
+refinement), CorrectLoop (Sim3 propagation over the covisible group,
+landmark fuse, essential-graph optimization, global BA).  Ported:
+``_RowView`` and ``_MapSnapshot`` (71-93), ``LoopEdge`` (96-107),
+``__init__`` with the cull listener (110-168, 270-277),
+``process_keyframe`` (280-302), the detection worker (``_detect_job``,
+``_apply_pending``, ``stop``, 305-384), ``flush``
+(386-401), ``_process_resolved`` (403-426), ``_covisible_set``/``_detect``
+(429-474), ``_compute_sim3`` (477-544), ``_refine_sim3`` (547-643),
+``_correct`` (646-769), ``_optimize_essential_graph`` (772-939),
+``run_global_ba``, ``dispatch_global_ba``, ``poll_global_ba``,
 ``_apply_gba``, ``_ride_first_kf`` and ``_dispatch_gba`` (942-1180).
 Host math is numpy (``geometry/host.py``); the device programs run on
 the closer's ``device``.
+
+Two switches, both off here and on in ``System``'s default schedule, as
+in the JAX package.  ``async_detect``: the BoW transform, detection and
+the Sim3 chain of each keyframe run on a worker thread
+(``utils/worker.py``) that never mutates the map (it reads a
+``_MapSnapshot`` taken under ``map.lock``); a loop it accepts is parked
+and corrected on the tracking thread at the next keyframe event, after
+both keyframes' generations are checked again.  ``gba_async``: the
+global BA of a correction is packed on the tracking thread, solved on a
+second worker, and applied by a later ``poll_global_ba`` with
+spanning-chain propagation to what was made meanwhile; a newer loop
+supersedes a pending solve, which is then never applied.  A worker's
+exception is raised on the tracking thread: a detection's at the next
+keyframe event or at ``flush`` (after a parked loop is applied), a
+global BA's at ``poll_global_ba``.
 
 Shape policy: the JAX package pads every device problem to a fixed
 bucket (256 / 512 matches, edges to a multiple of 256, global BA to the
@@ -24,16 +41,15 @@ landmark and observation counts.  Masked padding does not change a
 solve.  Which global solver runs is still decided from the configured
 capacity, as in the JAX package, so both take the same branch.
 
-Not ported: the jit warmups; the detection worker thread
-(``async_detect``), asynchronous global BA (``gba_async``,
-``dispatch_global_ba``/``poll_global_ba``) and the landmark-sharded
-multi-device global BA.  Setting ``async_detect`` or ``gba_async``
-raises ``NotImplementedError``.
+Not ported: the jit warmups and the landmark-sharded multi-device global
+BA.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import torch
@@ -61,10 +77,35 @@ from ..slam_map.fuse import fuse_into_keyframe
 from ..slam_map.keyframe_db import KeyFrameDatabase
 from ..slam_map.map_store import MapStore
 from ..utils.timing import StageTimer
+from ..utils.worker import Worker
 from .vocabulary import Vocabulary
 
 _POINT_KEYS = ("R", "t", "cam_fixed", "points", "point_valid", "obs_cam", "obs_lm", "obs_uvur",
                "obs_oct", "obs_valid")
+
+
+class _RowView:
+    """Per-keyframe row copies with the source's indexing interface."""
+
+    def __init__(self, src, ids):
+        self._d = {int(k): np.array(src[int(k)], copy=True) for k in ids}
+
+    def __getitem__(self, k):
+        return self._d[int(k)]
+
+
+class _MapSnapshot:
+    """Consistent copy of everything the Sim3 chain reads for two
+    keyframes, taken under map.lock by the detection worker: the tracking
+    thread keeps mutating the keyframe and landmark arrays in place, and
+    a Sim3 fit on torn state can pass its inlier gates and rewrite the
+    whole map with a wrong similarity."""
+
+    def __init__(self, store, ids):
+        for name in ("kf_desc", "kf_obs_lm", "kf_feat_valid", "kf_xy", "kf_oct", "kf_R", "kf_t"):
+            setattr(self, name, _RowView(getattr(store, name), ids))
+        self.pt_pos = store.pt_pos.copy()
+        self.pt_valid = store.pt_valid.copy()
 
 
 @dataclasses.dataclass
@@ -80,25 +121,7 @@ class LoopEdge:
     gen_b: int = 0
 
 
-class _NotPorted:
-    """A switch whose True side is not ported: reads False, and setting
-    it to True raises instead of quietly running synchronously."""
-
-    def __init__(self, what: str):
-        self.what = what
-
-    def __get__(self, obj, objtype=None):
-        return False
-
-    def __set__(self, obj, value):
-        if value:
-            raise NotImplementedError(f"{self.what} is not ported to the torch package yet")
-
-
 class LoopCloser:
-    gba_async = _NotPorted("asynchronous global BA (gba_async)")
-    async_detect = _NotPorted("the loop-detection worker thread (async_detect)")
-
     def __init__(self, cfg: SlamConfig, store: MapStore, voc: Vocabulary, *, device):
         self.cfg = cfg
         self.map = store
@@ -132,16 +155,35 @@ class LoopCloser:
         self.closure_ms: list[dict] = []
         self.n_gba_applied = 0
         self.last_gba_solver = None   # "dense", "dense+lines" or "cg"
+        # Asynchronous global BA (the reference's detached global-BA
+        # thread): (pack, future, kf_valid at pack time) of the one solve
+        # whose result will be applied; superseded solves' futures are
+        # kept until read.
+        self.gba_async = False
+        self._pending_gba = None
+        self._superseded_gba: list = []
+        self.n_gba_superseded = 0
+        self._gba_worker: Worker | None = None
+        # Asynchronous detection (the reference's LoopClosing thread): a
+        # loop the worker accepts is parked in _pending_loop as (kf, gen,
+        # cand, cand_gen, sim, count) and corrected on the tracking thread.
+        self.async_detect = False
+        self._worker: Worker | None = None
+        self._detections: list = []          # futures of the submitted detection jobs
+        self._pending_loop = None
+        self._pending_loop_ms: dict = {}     # the parked loop's detect and sim3 ms
+        self._db_lock = threading.Lock()     # the keyframe database and consistency groups
 
     def _t(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     # ------------------------------------------------------------------
     def _on_kf_culled(self, k: int, parent: int):
-        self.db.erase(k)
-        self.consistent_groups = [
-            (g - {k}, c) for g, c in self.consistent_groups if g - {k}
-        ]
+        with self._db_lock:
+            self.db.erase(k)
+            self.consistent_groups = [
+                (g - {k}, c) for g, c in self.consistent_groups if g - {k}
+            ]
         if self._pending_bow is not None and self._pending_bow[0] == k:
             self._pending_bow = None
 
@@ -149,10 +191,21 @@ class LoopCloser:
     def process_keyframe(self, kf_id: int, run_gba: bool = True) -> bool:
         """Dispatch kf_id's BoW transform; detect + close a loop ending
         at the PREVIOUS keyframe (whose words were dispatched one
-        keyframe ago).  Returns True if a loop was closed (the map was
-        rewritten); `last_closed_kf` then names the corrected keyframe."""
+        keyframe ago).  With ``async_detect``, apply a loop the worker has
+        parked, then hand kf_id to the worker.  Returns True if a loop was
+        closed (the map was rewritten); `last_closed_kf` then names the
+        corrected keyframe."""
         store = self.map
         self.kf_counter += 1
+        if self.async_detect:
+            # Map mutation stays on this thread.
+            applied = self._apply_pending(run_gba)
+            self._check_detections()
+            if self._worker is None or not self._worker.is_alive():
+                self._worker = Worker("loop-closing", self.device)
+            self._detections.append(
+                self._worker.submit(self._detect_job, kf_id, int(store.kf_gen[kf_id]), self.kf_counter))
+            return applied
         valid = store.kf_feat_valid[kf_id] & (store.kf_obs_lm[kf_id] >= 0)
         prev = self._pending_bow
         self._pending_bow = (
@@ -161,9 +214,93 @@ class LoopCloser:
         )
         return self._process_resolved(prev, run_gba)
 
+    # ------------------------------------------------------------------
+    # the detection worker (the reference's LoopClosing thread)
+    # ------------------------------------------------------------------
+    def _detect_job(self, kf_id: int, gen: int, count: int):
+        """Worker side: BoW transform, index insert, detection and the
+        Sim3 chain.  Read-only on the map; parks an accepted loop."""
+        store = self.map
+        with store.lock:
+            if not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen:
+                return
+            valid = store.kf_feat_valid[kf_id] & (store.kf_obs_lm[kf_id] >= 0)
+            desc = store.kf_desc[kf_id].copy()
+        words = self.voc.dispatch_transform(self._t(desc)).cpu().numpy()
+        with self._db_lock:
+            if not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen:
+                return
+            self.db.add_words(kf_id, words, valid)
+        if (
+            store.n_keyframes() < 6
+            or count - self.last_loop_count < 10
+            or self._pending_loop is not None
+        ):
+            return
+        t0 = time.perf_counter()
+        with store.lock, self._db_lock:
+            cand = self._detect(kf_id)
+        t1 = time.perf_counter()
+        self.timing.add("detect", t1 - t0)
+        if cand is None or not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen:
+            return
+        with store.lock:
+            cand_gen = int(store.kf_gen[cand])
+            view = _MapSnapshot(store, (kf_id, cand))
+        ok, sim = self._compute_sim3(kf_id, cand, view=view)
+        t2 = time.perf_counter()
+        self.timing.add("sim3", t2 - t1)
+        if ok:
+            self._pending_loop_ms = {"detect": (t1 - t0) * 1e3, "sim3": (t2 - t1) * 1e3}
+            self._pending_loop = (kf_id, gen, cand, cand_gen, sim, count)
+
+    def _check_detections(self):
+        """Read the finished detection jobs' futures in order: a job's
+        exception is raised here, on the tracking thread."""
+        while self._detections and self._detections[0].done():
+            self._detections.pop(0).result()
+
+    def _apply_pending(self, run_gba: bool) -> bool:
+        """Tracking-thread side: correct a worker-detected loop (the
+        map-rewriting half of CorrectLoop), unless either keyframe was
+        culled or its slot recycled since the detection."""
+        p = self._pending_loop
+        if p is None:
+            return False
+        self._pending_loop = None
+        kf_id, gen, cand, cand_gen, sim, _count = p
+        store = self.map
+        if (
+            not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen
+            or not store.kf_valid[cand] or store.kf_gen[cand] != cand_gen
+        ):
+            return False
+        before = dict(self.timing.acc)
+        with store.lock:
+            self._correct(kf_id, cand, sim, run_gba=run_gba)
+        self.closure_ms.append({"kf": int(kf_id), **self._pending_loop_ms, **{
+            k: (self.timing.acc[k] - before.get(k, 0.0)) * 1e3 for k in ("correct", "essential_graph", "gba")
+            if k in self.timing.acc}})
+        self.last_loop_count = self.kf_counter
+        self.last_closed_kf = kf_id
+        return True
+
+    def stop(self):
+        """End the worker threads (each finishes its queued jobs first)."""
+        for worker in (self._worker, self._gba_worker):
+            if worker is not None:
+                worker.stop()
+
     def flush(self, run_gba: bool = True) -> bool:
         """Drain the pending keyframe's detection (shutdown / end of
-        sequence)."""
+        sequence).  With ``async_detect``: wait for the worker, apply a
+        parked loop, then raise a detection job's exception, if any."""
+        if self.async_detect:
+            if self._worker is not None:
+                self._worker.join()
+            applied = self._apply_pending(run_gba)
+            self._check_detections()
+            return applied
         prev = self._pending_bow
         self._pending_bow = None
         return self._process_resolved(prev, run_gba)
@@ -246,10 +383,11 @@ class LoopCloser:
         return winner
 
     # ------------------------------------------------------------------
-    def _compute_sim3(self, kf_id, cand):
+    def _compute_sim3(self, kf_id, cand, view=None):
         """Match landmarks between the two keyframes, RANSAC a Sim3
-        T_{cur<-cand} in camera frames."""
-        store = self.map
+        T_{cur<-cand} in camera frames.  `view` (the detection worker) is
+        a _MapSnapshot, so every read sees one consistent map state."""
+        store = view if view is not None else self.map
         dev = self.device
         cur_lm = store.kf_obs_lm[kf_id]
         cand_lm = store.kf_obs_lm[cand]
@@ -304,18 +442,18 @@ class LoopCloser:
         keep[:n] = inl.cpu().numpy()[:n]
         refined = self._refine_sim3(
             kf_id, cand, float(s), R.cpu().numpy(), t.cpu().numpy(),
-            rows[keep], lm1[keep], lm2[keep],
+            rows[keep], lm1[keep], lm2[keep], view=view,
         )
         if refined is None:
             return False, None
         return True, refined
 
     # ------------------------------------------------------------------
-    def _refine_sim3(self, kf_id, cand, s, R, t, rows_bow, lm1_bow, lm2_bow):
+    def _refine_sim3(self, kf_id, cand, s, R, t, rows_bow, lm1_bow, lm2_bow, view=None):
         """SearchBySim3 (mutual guided matching) + optimize_sim3.
         Returns the refined (s, R, t) of T_{cur<-cand} or None if fewer
         than 20 inliers survive (the reference's acceptance bar)."""
-        store = self.map
+        store = view if view is not None else self.map
         cam = self.cfg.camera
         scales = self.cfg.orb.level_scales
         T = self._t
@@ -419,7 +557,16 @@ class LoopCloser:
             self._optimize_essential_graph(kf_id, cand, pre_R=pre_R, pre_t=pre_t, W_pre=W_pre)
         if run_gba:
             with self.timing.stage("gba"):
-                self.run_global_ba()
+                if self.gba_async:
+                    # A newer loop supersedes the pending global BA (the
+                    # reference's mbStopGBA): its result is never applied.
+                    if self._pending_gba is not None:
+                        self._superseded_gba.append(self._pending_gba[1])
+                        self._pending_gba = None
+                        self.n_gba_superseded += 1
+                    self.dispatch_global_ba()
+                else:
+                    self.run_global_ba()
 
     def _correct_group(self, kf_id, cand, sim):
         """The group rewrite, search-and-fuse and the loop edge of
@@ -675,6 +822,36 @@ class LoopCloser:
         self._apply_gba(pack, res, snap_valid=self.map.kf_valid.copy())
         self.n_gba_applied += 1
 
+    def dispatch_global_ba(self, iters1: int = 12, iters2: int = 0):
+        """Pack the global BA here and solve it on the global-BA worker;
+        a later poll_global_ba() applies it."""
+        out = self._pack_gba(iters1, iters2)
+        if out is None:
+            return
+        pack, problem = out
+        if self._gba_worker is None or not self._gba_worker.is_alive():
+            self._gba_worker = Worker("global-ba", self.device)
+        self._pending_gba = (pack, self._gba_worker.submit(self._solve_gba, problem), self.map.kf_valid.copy())
+
+    def poll_global_ba(self, force: bool = False) -> bool:
+        """Apply the pending global BA if its solve has finished (waiting
+        for it with force=True).  Returns True if applied; a solve's
+        exception, superseded solves' included, is raised here."""
+        while self._superseded_gba and (force or self._superseded_gba[0].done()):
+            self._superseded_gba.pop(0).result()
+        if self._pending_gba is None:
+            return False
+        pack, fut, snap_valid = self._pending_gba
+        if not force and not fut.done():
+            return False
+        self._pending_gba = None
+        res, seconds = fut.result()
+        self.timing.add("gba_worker", seconds)
+        with self.map.lock:
+            self._apply_gba(pack, res, snap_valid)
+        self.n_gba_applied += 1
+        return True
+
     def _apply_gba(self, pack, res, snap_valid: np.ndarray):
         """Write back the global-BA solution; keyframes that were not in
         the solved snapshot are corrected through the spanning chain, and
@@ -755,8 +932,17 @@ class LoopCloser:
             ride(store.ln_end, ln_ids[ok], lfk[ok])
 
     def _dispatch_gba(self, iters1: int = 5, iters2: int = 10):
-        """Build and solve the full-map BA problem; returns (pack, res)
-        with res on the host.
+        """Pack and solve the full-map BA problem; returns (pack, host
+        result), or None with fewer than two keyframes."""
+        out = self._pack_gba(iters1, iters2)
+        if out is None:
+            return None
+        pack, problem = out
+        return pack, self._solve_gba(problem)[0]
+
+    def _pack_gba(self, iters1: int, iters2: int):
+        """The full-map BA problem, on the host: (pack, problem), where
+        the problem holds the solver's numpy inputs.
 
         Small maps use the dense-block Schur solver (jointly with the
         line landmarks when the map has any); past the point where its
@@ -765,12 +951,12 @@ class LoopCloser:
         (backend/global_ba.py) takes over, so the full map is optimized
         with no landmark or observation truncation.  The problem is
         packed at capacity (which fixes what is selected) and trimmed to
-        the live counts before it goes to the device."""
+        the live counts for the device."""
         store = self.map
         Kn = store._next_kf
         ids = np.nonzero(store.kf_valid[:Kn])[0]
         if len(ids) < 2:
-            return
+            return None
         mc = self.cfg.map
         n_cams = max(mc.max_keyframes, -(-len(ids) // 32) * 32)
         n_pts = mc.max_points
@@ -779,22 +965,13 @@ class LoopCloser:
         pack = store.pack_local_ba(
             int(ids[-1]), max_cams=n_cams, max_points=n_pts, max_obs=n_obs, all_free=True,
         )
-        T = self._t
         C, P, O = len(pack["cam_ids"]), max(len(pack["lm_ids"]), 1), max(int(pack["n_obs"]), 1)
         cut = {"R": C, "t": C, "cam_fixed": C, "points": P, "point_valid": P}
-        args = tuple(T(pack[k][: cut.get(k, O)]) for k in _POINT_KEYS)
-        cam, sf = self.cfg.camera, self.cfg.orb.scale_factor
-
-        def to_host(res):
-            return type(res)(*(x.cpu().numpy() for x in res))
-
+        problem = {"iters": (iters1, iters2), "args": tuple(pack[k][: cut.get(k, O)] for k in _POINT_KEYS)}
         if use_cg:
-            self.last_gba_solver = "cg"
-            res = bundle_adjust_cg(
-                *args, cam, sf, iters1=iters1, iters2=iters2, fix_first=True,
-                cg_iters=min(6 * n_cams, 64),
-            )
-            return pack, to_host(res)
+            self.last_gba_solver = problem["solver"] = "cg"
+            problem["cg_iters"] = min(6 * n_cams, 64)
+            return pack, problem
         # Dense path: when the map carries line landmarks, global BA
         # optimizes them jointly; the CG path rides lines on their first
         # keyframe's motion.
@@ -804,7 +981,6 @@ class LoopCloser:
                 pack["cam_ids"], max_lines=mc.max_lines, max_lobs=mc.max_lines * 8,
             )
         if lpack is not None:
-            self.last_gba_solver = "dense+lines"
             ids_l = lpack["ln_ids"]
             Lc, Ol = len(ids_l), max(int(lpack["n_lobs"]), 1)
             s_w = np.zeros((Lc, 3), np.float32)
@@ -816,15 +992,31 @@ class LoopCloser:
             U0, w0 = northonormal_from_pluecker(*npluecker_from_endpoints(s_w, e_w))
             fixed0 = pack["cam_fixed"][:C].copy()
             fixed0[0] = True
-            res = bundle_adjust_pl(
-                args[0], args[1], T(fixed0), *args[3:10],
-                T(U0.astype(np.float32)), T(w0.astype(np.float32)), T(lval),
-                *(T(lpack[k][:Ol]) for k in ("lobs_cam", "lobs_ln", "lobs_a", "lobs_b")),
-                torch.zeros(Ol, dtype=torch.int32, device=self.device), T(lpack["lobs_valid"][:Ol]),
-                cam, sf, iters1=iters1, iters2=iters2,
-            )
+            self.last_gba_solver = problem["solver"] = "dense+lines"
+            problem["fixed0"] = fixed0
+            problem["lines"] = (U0.astype(np.float32), w0.astype(np.float32), lval,
+                                *(lpack[k][:Ol] for k in ("lobs_cam", "lobs_ln", "lobs_a", "lobs_b")),
+                                np.zeros(Ol, np.int32), lpack["lobs_valid"][:Ol])
             pack["_lpack"] = lpack
-            return pack, to_host(res)
-        self.last_gba_solver = "dense"
-        res = bundle_adjust(*args, cam, sf, iters1=iters1, iters2=iters2, fix_first=True)
-        return pack, to_host(res)
+            return pack, problem
+        self.last_gba_solver = problem["solver"] = "dense"
+        return pack, problem
+
+    def _solve_gba(self, problem):
+        """Upload, solve and fetch a packed full-map BA problem, on the
+        calling thread (the global-BA worker when asynchronous).  Returns
+        (host result, seconds)."""
+        t0 = time.perf_counter()
+        T = self._t
+        args = tuple(T(a) for a in problem["args"])
+        cam, sf = self.cfg.camera, self.cfg.orb.scale_factor
+        iters1, iters2 = problem["iters"]
+        if problem["solver"] == "cg":
+            res = bundle_adjust_cg(*args, cam, sf, iters1=iters1, iters2=iters2, fix_first=True,
+                                   cg_iters=problem["cg_iters"])
+        elif problem["solver"] == "dense+lines":
+            res = bundle_adjust_pl(args[0], args[1], T(problem["fixed0"]), *args[3:10],
+                                   *(T(a) for a in problem["lines"]), cam, sf, iters1=iters1, iters2=iters2)
+        else:
+            res = bundle_adjust(*args, cam, sf, iters1=iters1, iters2=iters2, fix_first=True)
+        return type(res)(*(x.cpu().numpy() for x in res)), time.perf_counter() - t0

@@ -1,20 +1,25 @@
 """System facade — the embedder-facing API of the stereo path.
 
-Port of ``orb_line_slam_tpu/pipeline/system.py``: ``track_stereo``
-(116-119), ``_on_keyframe`` (137-206: the vocabulary trained on the fly
-from the first keyframes' descriptors, the ``LoopCloser`` with its
-``pre_correct_hook``, the tracker's pose reset after a closure),
-``_reloc_candidates`` (208-217), ``reset`` (230-235), ``shutdown``
-(237-247), the trajectory writers (250-271), ``tracking_state`` and
-``map`` (274-279).  The device is an explicit, required argument;
-nothing falls back to the CPU.  Stereo tracking runs with points and,
-under the default ``LineConfig(enabled=True)``, lines; mapping is
-synchronous.  Loop closing runs at each keyframe event on the calling
-thread (``async_loop=False``) with a synchronous global BA
-(``gba_async=False``): the detection worker thread and the asynchronous
-global BA are not ported, and asking for either raises.  Neither are
-monocular and RGB-D input, localization-only mode, or the warmups (there
-is nothing to compile ahead of time).
+Port of ``orb_line_slam_tpu/pipeline/system.py``: the constructor and
+its schedule (31-69), ``track_stereo`` (116-119), ``_on_keyframe``
+(137-206: the vocabulary trained on the fly from the first keyframes'
+descriptors, the ``LoopCloser`` with its switches and
+``pre_correct_hook``, the pending global BA polled before each keyframe,
+the tracker's pose reset after a closure), ``_reloc_candidates``
+(208-217), the localization mode (220-228), ``reset`` (230-235),
+``shutdown`` (237-247), the trajectory writers (250-271),
+``tracking_state`` and ``map`` (274-279).
+
+``System(settings)`` runs the JAX package's default schedule: deferred
+local mapping (``tracker.async_mapping``), loop detection and the Sim3
+chain on a worker thread (``async_loop``) and the global BA solved on
+another (``gba_async``), on the CUDA card.  Every comparison with the
+pinned JAX schedule (``bench.py:269-276``) pins all three:
+``System(..., async_loop=False)``, ``gba_async = False``,
+``tracker.async_mapping = False``.  Stereo tracking runs with points and,
+under the default ``LineConfig(enabled=True)``, lines.  Not ported:
+monocular and RGB-D input, and the warmups (there is nothing to compile
+ahead of time).
 """
 
 from __future__ import annotations
@@ -29,20 +34,16 @@ from ..config import SlamConfig, load_settings
 from ..eval.trajectory import save_trajectory_kitti, save_trajectory_tum
 from ..loop.loop_closing import LoopCloser
 from ..loop.vocabulary import Vocabulary
-from .tracking import Tracker
+from .tracking import Tracker, checked_device
 
 
 class System:
     def __init__(self, settings: SlamConfig | str | Path,
                  vocabulary: Vocabulary | str | Path | None = None,
-                 use_loop_closing: bool = True, async_loop: bool = False, *,
-                 device: str | torch.device):
-        if async_loop:
-            raise NotImplementedError(
-                "async_loop=True (loop detection on a worker thread) is not ported to the "
-                "torch package yet; loop closing runs synchronously at keyframe events")
+                 use_loop_closing: bool = True, async_loop: bool = True, *,
+                 device: str | torch.device = "cuda"):
         self.cfg = settings if isinstance(settings, SlamConfig) else load_settings(settings)
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.tracker = Tracker(self.cfg, self.device)
         self.voc: Optional[Vocabulary] = None
         if isinstance(vocabulary, Vocabulary):
@@ -50,24 +51,17 @@ class System:
         elif vocabulary is not None:
             self.voc = Vocabulary.parse_orbvoc_txt(vocabulary)
         self.use_loop_closing = use_loop_closing
-        self.async_loop = False
+        # Loop detection + Sim3 on a worker thread; corrections apply at
+        # keyframe events on the tracking thread.
+        self.async_loop = async_loop
         self.loop_closer: Optional[LoopCloser] = None
+        self.localization_only = False
         self.n_loops_closed = 0
-        self._gba_async = False
+        # Global BA packed at the closure, solved on a worker and applied
+        # at a later keyframe event (the reference's detached GBA thread).
+        self.gba_async = True
         self._voc_corpus: list[np.ndarray] = []
         self.tracker.on_keyframe = self._on_keyframe
-
-    @property
-    def gba_async(self) -> bool:
-        return self._gba_async
-
-    @gba_async.setter
-    def gba_async(self, value: bool):
-        if value:
-            raise NotImplementedError(
-                "gba_async=True (global BA applied at a later keyframe) is not ported to the "
-                "torch package yet; global BA runs synchronously inside the loop correction")
-        self._gba_async = False
 
     def track_stereo(self, img_left, img_right, timestamp: float = 0.0) -> np.ndarray:
         """Feed a rectified stereo pair (uint8 [H, W]); returns the 4x4 Tcw."""
@@ -75,7 +69,7 @@ class System:
 
     # ------------------------------------------------------------------
     def _on_keyframe(self, kf_id: int):
-        if not self.use_loop_closing:
+        if self.localization_only or not self.use_loop_closing:
             return
         if self.voc is None:
             # Train a vocabulary on the fly: accumulate the first few
@@ -96,37 +90,73 @@ class System:
             self._voc_corpus = []
         if self.loop_closer is None:
             self.loop_closer = LoopCloser(self.cfg, self.tracker.map, self.voc, device=self.device)
+            self.loop_closer.gba_async = self.gba_async
+            self.loop_closer.async_detect = self.async_loop
             self.loop_closer.fix_scale = True   # stereo: the map has metric scale
             self.tracker.reloc_candidates_fn = self._reloc_candidates
-            # Reference CorrectLoop order: local mapping is drained
-            # before the pose rewrite, so outstanding triangulation, fuse
-            # and BA land instead of being discarded by the epoch guard.
-            self.loop_closer.pre_correct_hook = self.tracker.poll_map_jobs
+            self.loop_closer.pre_correct_hook = self._drain_mapping
+        # Apply a finished global BA before touching the map.
+        self.loop_closer.poll_global_ba()
         closed = self.loop_closer.process_keyframe(kf_id)
         if closed:
             self.n_loops_closed += 1
-            # Tracking continues from the corrected keyframe pose.
+            # Tracking continues from the corrected keyframe pose, with no
+            # motion carried across the correction.
             self.tracker.R = self.tracker.map.kf_R[kf_id].copy()
             self.tracker.t = self.tracker.map.kf_t[kf_id].copy()
+            self.tracker._carry = None
+
+    def _drain_mapping(self):
+        # Reference CorrectLoop order: local mapping is drained before the
+        # pose rewrite, so outstanding triangulation, fuse and BA land
+        # instead of being discarded by the epoch guard.
+        self.tracker.poll_map_jobs(force=True)
+        self.tracker.flush_pending_ba()
 
     def _reloc_candidates(self, frame):
         if self.loop_closer is None:
             return []
-        return self.loop_closer.db.detect_relocalization_candidates(frame.desc, frame.valid)
+        # The detection worker writes the inverted index concurrently.
+        with self.loop_closer._db_lock:
+            return self.loop_closer.db.detect_relocalization_candidates(frame.desc, frame.valid)
 
     # ------------------------------------------------------------------
+    def activate_localization_mode(self):
+        """Tracking only: no new keyframes or landmarks (the reference's
+        ActivateLocalizationMode)."""
+        self.localization_only = True
+        self.tracker.localization_only = True
+
+    def deactivate_localization_mode(self):
+        self.localization_only = False
+        self.tracker.localization_only = False
+
     def reset(self):
+        self.tracker.stop()
+        if self.loop_closer is not None:
+            self.loop_closer.stop()
         self.tracker = Tracker(self.cfg, self.device)
         self.tracker.on_keyframe = self._on_keyframe
         self.loop_closer = None
 
     def shutdown(self):
-        """Finish outstanding work: apply every pending mapping job, then
-        run the detection of the last keyframe, whose words were still
-        pending (a loop may close here)."""
-        self.tracker.poll_map_jobs()
-        if self.loop_closer is not None and self.loop_closer.flush():
-            self.n_loops_closed += 1
+        """Join outstanding work (mapping chains, the deferred local BA,
+        the pending loop detection, the global BA in flight) and end the
+        worker threads."""
+        self.tracker.flush()
+        if self.loop_closer is not None:
+            if self.loop_closer.flush():
+                self.n_loops_closed += 1
+            self.loop_closer.poll_global_ba(force=True)
+            self.loop_closer.stop()
+        self.tracker.stop()
+
+    def worker_busy_s(self) -> dict[str, float]:
+        """Seconds each worker thread made so far has spent in its jobs."""
+        workers = [self.tracker._mapping_worker]
+        if self.loop_closer is not None:
+            workers += [self.loop_closer._worker, self.loop_closer._gba_worker]
+        return {w.name: w.busy_s for w in workers if w is not None}
 
     # ------------------------------------------------------------------
     def save_trajectory_kitti(self, path):

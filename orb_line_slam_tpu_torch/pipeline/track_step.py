@@ -2,7 +2,8 @@
 
 Port of ``orb_line_slam_tpu/pipeline/track_step.py`` — ``MapMirror``
 (65-75), ``_invert_matches`` (104-109), ``track_step`` (112-371),
-``remap_stats`` (410-426) and ``zero_stats`` (429-438):
+``remap_stats`` (410-426), ``zero_stats`` (429-438) and ``override_carry``
+(442-446):
 
   motion-model projection search -> pose opt 2x8 (path A)
   reference-KF descriptor match -> EPnP-RANSAC seed -> pose opt 2x8 (path B)
@@ -294,3 +295,10 @@ def zero_stats(out: TrackOut) -> TrackOut:
     z = torch.zeros_like
     return out._replace(found_acc=z(out.found_acc), vis_acc=z(out.vis_acc),
                         ln_found_acc=z(out.ln_found_acc), ln_vis_acc=z(out.ln_vis_acc))
+
+
+def override_carry(out: TrackOut, R: torch.Tensor, t: torch.Tensor) -> TrackOut:
+    """Rewrite the pose carry after a host-side pose correction (a
+    deferred BA's re-anchoring).  The velocity is frame-relative and
+    survives a rigid re-anchoring, so it is kept."""
+    return out._replace(R=R, t=t)

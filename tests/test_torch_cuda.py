@@ -148,3 +148,26 @@ def test_line_frontend_on_card_matches_cpu(cuda):
         hit = (dc > 0) & (dg > 0)
         if hit.sum() >= 3:
             assert np.median(np.abs(dc[hit] - dg[hit]) / dg[hit]) < 0.02
+
+
+def test_worker_runs_its_jobs_on_its_own_stream_after_the_submitters_work(cuda):
+    """utils/worker.py on the card: a job runs on the worker's stream, not
+    the submitting thread's, and sees what the submitting thread queued on
+    its stream before the submit (a long kernel chain still in flight)."""
+    from orb_line_slam_tpu_torch.utils.worker import Worker
+
+    w = Worker("cuda-test-worker", cuda)
+    try:
+        x = torch.zeros(4096, 4096, device=cuda)
+        for _ in range(50):                  # queued on the current stream, not finished at submit
+            x.add_(1.0)
+        main = torch.cuda.current_stream(cuda).cuda_stream
+
+        def job():
+            return torch.cuda.current_stream(cuda).cuda_stream, float(x[0, 0] + x[-1, -1])
+
+        stream, total = w.submit(job).result(timeout=60)
+        assert stream != main and total == 100.0
+    finally:
+        w.stop()
+    assert not w.is_alive()

@@ -346,11 +346,32 @@ def test_line_endpoints_move_with_the_correction():
 
 
 def test_async_switches_raise():
-    lc, _, _ = _closer()
+    """With the switches on, a worker's failure is raised on the calling
+    thread, not swallowed: a detection job's at the next keyframe, a
+    global BA solve's at poll_global_ba.  Off, nothing starts a thread."""
+    lc, store, _ = _closer()
     assert lc.gba_async is False and lc.async_detect is False
-    lc.gba_async = False
-    lc.async_detect = False
-    with pytest.raises(NotImplementedError):
-        lc.gba_async = True
-    with pytest.raises(NotImplementedError):
-        lc.async_detect = True
+    lc.process_keyframe(0)
+    lc.run_global_ba()
+    assert lc._worker is None and lc._gba_worker is None and lc.n_gba_applied == 1
+    lc.async_detect = lc.gba_async = True
+
+    def failing_detection(kf_id, gen, count):
+        raise ValueError(f"detection of keyframe {kf_id} failed")
+
+    lc._detect_job = failing_detection
+    lc.process_keyframe(1)
+    lc._worker.join()
+    with pytest.raises(ValueError, match="keyframe 1"):
+        lc.process_keyframe(2)
+
+    def failing_solve(problem):
+        raise ValueError("global BA solve failed")
+
+    lc._solve_gba = failing_solve
+    lc.dispatch_global_ba()
+    with pytest.raises(ValueError, match="global BA"):
+        lc.poll_global_ba(force=True)
+    assert lc._pending_gba is None and lc.n_gba_applied == 1
+    lc.stop()
+    assert not lc._worker.is_alive() and not lc._gba_worker.is_alive()

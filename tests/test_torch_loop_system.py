@@ -78,7 +78,9 @@ def _run(use_loop, monkeypatch=None, cfg=CFG, scene=None, poses=None, stop_at_cl
     after it, and the map and accepted Sim3 it started from."""
     poses = loop_circuit_trajectory(N_FRAMES, radius=RADIUS, laps=LAPS) if poses is None else poses
     scene = _scene() if scene is None else scene
-    slam = System(cfg, use_loop_closing=use_loop, device="cpu")
+    slam = System(cfg, use_loop_closing=use_loop, async_loop=False, device="cpu")
+    slam.gba_async = False
+    slam.tracker.async_mapping = False
     slam.closure_gaps, slam.closure_snapshots = [], []
     if monkeypatch is not None:
         correct = LoopCloser._correct
@@ -322,19 +324,20 @@ def test_stale_map_job_is_discarded_after_a_correction(monkeypatch):
     monkeypatch.setattr(tracking, "apply_triangulation", lambda m, j: calls.append("tri") or np.zeros(0, np.int32))
     monkeypatch.setattr(tracking, "apply_fuse", lambda m, j: calls.append("fuse") or 0)
     tr = tracking.Tracker(CFG, "cpu")
-    monkeypatch.setattr(tr, "_local_ba", lambda kf: calls.append("ba"))
+    tr.async_mapping = False
+    monkeypatch.setattr(tr, "_local_ba", lambda kf, defer=False: calls.append("ba"))
     scene = _scene()
     for i, (R, t) in enumerate(loop_circuit_trajectory(N_FRAMES, radius=RADIUS, laps=LAPS)[:3]):
         tr.process_stereo(*scene.render_stereo(R, t), timestamp=0.1 * i)
     assert tr.map.n_keyframes() >= 2
     kf = tr.ref_kf
     calls.clear()
-    tr._map_jobs.append((kf, {"job": 1}, {"job": 1}, getattr(tr.map, "pose_epoch", 0)))
+    tr._map_jobs.append((kf, {"job": 1}, {"job": 1}, None, getattr(tr.map, "pose_epoch", 0)))
     tr.map.mark_all_pts_dirty()                  # what a loop correction does
     tr.poll_map_jobs()
     assert "tri" not in calls and "fuse" not in calls and not tr._map_jobs
     calls.clear()
-    tr._map_jobs.append((kf, {"job": 2}, {"job": 2}, tr.map.pose_epoch))
+    tr._map_jobs.append((kf, {"job": 2}, {"job": 2}, None, tr.map.pose_epoch))
     tr.poll_map_jobs()
     assert calls[:2] == ["tri", "fuse"]
 
@@ -348,6 +351,7 @@ def test_on_keyframe_correction_reanchors_the_tracker():
     shift = np.array([0.5, 0.0, -0.25], np.float32)
     for move in (False, True):
         tr = tracking.Tracker(CFG, "cpu")
+        tr.async_mapping = False
         seen = []
 
         def hook(kf, tr=tr, move=move, seen=seen):
@@ -357,7 +361,7 @@ def test_on_keyframe_correction_reanchors_the_tracker():
                 tr.map.mark_all_pts_dirty()
 
         tr.on_keyframe = hook
-        tr._local_ba = lambda kf: None      # keep the moved pose as it is
+        tr._local_ba = lambda kf, defer=False: None      # keep the moved pose as it is
         after = []
         for i, (R, t) in enumerate(poses):
             tr.process_stereo(*scene.render_stereo(R, t), timestamp=0.1 * i)

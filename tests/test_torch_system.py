@@ -1,7 +1,8 @@
 """The stereo point-only slice as a whole: the JAX System and the port's
 System on the CPU, on the pinned schedule (lines off, loop closing off,
 pipeline depth 0, synchronous mapping), on the same rendered frames;
-plus the package-level rules (never jax, fp32 policy)."""
+plus the package-level rules (never jax, fp32 policy, the card and the
+shipping schedule by default)."""
 
 import os
 import subprocess
@@ -52,7 +53,9 @@ def test_slice_matches_jax_system():
     n_ba_jax = []
     orig = jsys.tracker._local_ba
     jsys.tracker._local_ba = lambda *a, **k: (n_ba_jax.append(1), orig(*a, **k))[1]
-    tsys = System(config_from_jax(CFG), use_loop_closing=False, device="cpu")
+    tsys = System(config_from_jax(CFG), use_loop_closing=False, async_loop=False, device="cpu")
+    tsys.gba_async = False
+    tsys.tracker.async_mapping = False
     for i, (l, r) in enumerate(frames):
         jsys.track_stereo(l, r, timestamp=0.1 * i)
         tsys.track_stereo(l, r, timestamp=0.1 * i)
@@ -106,22 +109,63 @@ def test_package_never_imports_jax(tmp_path):
     assert proc.returncode == 0 and proc.stdout.strip().endswith("ok"), proc.stderr[-3000:]
 
 
-def test_system_requires_explicit_device_and_no_loop_closing():
+def test_system_requires_explicit_device_and_no_loop_closing(monkeypatch):
+    """The card is the default device: with no CUDA, System(cfg) raises a
+    RuntimeError that names CUDA (nothing falls back to the CPU), and
+    the CPU must be asked for explicitly.  The schedule defaults are the
+    JAX System's (async loop detection, asynchronous global BA, deferred
+    local mapping); with use_loop_closing=False no loop closer is ever
+    made."""
     import pytest
 
+    from orb_line_slam_tpu_torch.pipeline import tracking
+
     cfg = config_from_jax(CFG)
-    with pytest.raises(TypeError):
-        System(cfg)  # no device: nothing picks one silently
-    # Loop closing is ported on its synchronous schedule only: the worker
-    # thread and the asynchronous global BA raise instead of quietly
-    # running synchronously.
-    with pytest.raises(NotImplementedError):
-        System(cfg, use_loop_closing=True, async_loop=True, device="cpu")
-    slam = System(cfg, use_loop_closing=True, device="cpu")
-    assert slam.use_loop_closing and slam.gba_async is False and slam.async_loop is False
-    slam.gba_async = False
-    with pytest.raises(NotImplementedError):
-        slam.gba_async = True
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: System(cfg), lambda: System(cfg, device="cuda"), lambda: tracking.Tracker(cfg)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    jsys = JaxSystem(CFG)
+    slam = System(cfg, device="cpu")
+    assert (slam.use_loop_closing, slam.async_loop, slam.gba_async, slam.tracker.async_mapping) == (
+        jsys.use_loop_closing, jsys.async_loop, jsys.gba_async, jsys.tracker.async_mapping) == (True, True, True, True)
+    assert tracking.BA_SKIP_LIMIT == getattr(jsys.tracker, "ba_skip_limit", 1) == 1
+    off = System(cfg, use_loop_closing=False, device="cpu")
+    off._on_keyframe(0)
+    assert off.loop_closer is None and off.voc is None
+
+
+def test_system_wires_the_schedule_into_the_loop_closer():
+    """The switches as System hands them to its LoopCloser, as the JAX
+    System does (system.py:162-178): the defaults, and the pinned
+    schedule."""
+    from orb_line_slam_tpu_torch.loop.vocabulary import Vocabulary
+
+    cfg = config_from_jax(CFG)
+    voc = Vocabulary.synthesize(k=4, depth=2)
+    for async_loop, gba_async in ((True, True), (False, False)):
+        slam = System(cfg, vocabulary=voc, async_loop=async_loop, device="cpu")
+        slam.gba_async = gba_async
+        slam.tracker.map.add_keyframe(_Frame(cfg.orb.n_features), np.eye(3), np.zeros(3), 0)
+        slam._on_keyframe(0)
+        lc = slam.loop_closer
+        assert (lc.async_detect, lc.gba_async) == (async_loop, gba_async)
+        assert lc.pre_correct_hook == slam._drain_mapping and slam.tracker.reloc_candidates_fn is not None
+        slam.shutdown()
+        assert lc._worker is None or not lc._worker.is_alive()
+
+
+class _Frame:
+    """A keyframe's feature table with nothing valid."""
+
+    def __init__(self, n):
+        self.xy = np.zeros((n, 2), np.float32)
+        self.u_right = np.full(n, -1.0, np.float32)
+        self.depth = np.full(n, -1.0, np.float32)
+        self.octave = np.zeros(n, np.int32)
+        self.angle = np.zeros(n, np.float32)
+        self.desc = np.zeros((n, 32), np.uint8)
+        self.valid = np.zeros(n, bool)
 
 
 def test_fp32_policy():

@@ -44,7 +44,9 @@ def test_point_line_slice_matches_jax_system():
     jsys = JaxSystem(CFG, use_loop_closing=False, async_loop=False)
     jsys.tracker.async_mapping = False
     jsys.tracker.pipeline_depth = 0
-    tsys = System(config_from_jax(CFG), use_loop_closing=False, device="cpu")
+    tsys = System(config_from_jax(CFG), use_loop_closing=False, async_loop=False, device="cpu")
+    tsys.gba_async = False
+    tsys.tracker.async_mapping = False
     for i, (l, r) in enumerate(frames):
         jsys.track_stereo(l, r, timestamp=0.1 * i)
         tsys.track_stereo(l, r, timestamp=0.1 * i)
