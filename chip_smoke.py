@@ -9,9 +9,11 @@ BA), all on the pinned schedule that the JAX references were computed
 on (synchronous mapping, loop closing and global BA on the tracking
 thread), then bench.py's pipeline and the circuit again on the System's
 default schedule (deferred local mapping, loop detection and global BA
-on worker threads) — through ``System.track_stereo``, after building the
-hand-written CUDA kernels from the sources in this checkout and holding
-each to its plain PyTorch version.  Run from the root of a checkout:
+on worker threads) — through ``System.track_stereo``, and monocular and
+RGB-D tracking at TUM fr1's size through ``System.track_monocular`` and
+``System.track_rgbd``, after building the hand-written CUDA kernels from
+the sources in this checkout and holding each to its plain PyTorch
+version.  Run from the root of a checkout:
 
     python3 chip_smoke.py
 
@@ -19,8 +21,10 @@ Phases (each fails loudly, and the script exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: nvcc builds csrc/patch_tiles.cu, orb_describe.cu and
      stereo_sad.cu for sm_90a, one process each, started together;
-  3. kernels vs plain, at each of the three cells' atlas shapes and
-     feature budgets (8, 8 and 4 pyramid levels), with border and
+  3. kernels vs plain, at each of the three stereo cells' atlas shapes
+     and feature budgets (8, 8 and 4 pyramid levels), and for
+     orb_describe also at the TUM cell's batch of one ([1, 2210, 640],
+     N = 1000, the mono and RGB-D frames' shape), with border and
      clamped keypoints among the inputs: patch tiles, exact equality;
      orb_describe, angles within 1e-4 rad on >= 99.5% of keypoints,
      >= 99% of descriptors bit-identical, median 0 bits, none above 8;
@@ -38,8 +42,11 @@ Phases (each fails loudly, and the script exits non-zero):
      kernel count of the frame and of its describe and SAD stages;
      stereo_match through the stereo_sad kernel vs through its plain
      version;
-     extract_orb (the single-image path, which returns tiles and keeps
-     the patch-tile gather) on five images vs the CPU;
+     extract_orb_with_tiles (the single-image path that returns tiles and
+     keeps the patch-tile gather: one launch per image) on five images vs
+     the CPU; build_mono_frame and build_rgbd_frame on one TUM-size image
+     vs their CPU plain paths, each launching exactly one orb_describe and
+     no patch_tiles and making no [N, 32, 32] tensor;
   5. the slice: 60 frames, state OK, >= 3 keyframes, >= 1 local BA, one
      orb_describe and one stereo_sad launch per frame and no patch-tile
      launch, ATE no more than 10% + 1 cm above the JAX package's ATE on
@@ -86,9 +93,18 @@ Phases (each fails loudly, and the script exits non-zero):
      tracking thread, >= 1 global BA solved on the global-BA worker and
      applied by poll_global_ba, ATE within max(1.25 x, + 2 cm) of phase
      10's pinned run (tests/test_loop_closure_e2e.py's bound); for
-     both, the frames from each deferred local BA's pack to its apply.
-Phases 5, 7, 8 and 10 pin the schedule the JAX references were computed
-on (System(..., async_loop=False), gba_async = False,
+     both, the frames from each deferred local BA's pack to its apply;
+ 12. the monocular slice: 60 TUM-size frames (tum_config) through
+     System.track_monocular, state OK, initialised at the JAX package's
+     frame, >= 3 keyframes, >= 1 local BA, > 80 map points, one
+     orb_describe per frame and nothing else, similarity-aligned ATE no
+     more than 10% + 1 cm above the JAX package's;
+ 13. the RGB-D slice: 60 TUM-size frames of a room through
+     System.track_rgbd, state OK, >= 3 keyframes, >= 1 local BA, one
+     orb_describe per frame and nothing else, ATE no more than 10% + 1 cm
+     above the JAX package's.
+Phases 5, 7, 8, 10, 12 and 13 pin the schedule the JAX references were
+computed on (System(..., async_loop=False), gba_async = False,
 tracker.async_mapping = False).  Every slice run prints the tracking thread's per-frame host ms (p50,
 p90, max; the tracking thread's stream synchronised after each frame,
 not the device, whose other streams carry the workers' solves), the
@@ -100,7 +116,8 @@ torch.profiler now and then returns a window with device records
 missing; such a window is taken again (a bounded number of times, then
 the run fails), and a line near the end says how many were.  The line
 before the last lists the three kernels, with their launches over
-phases 4, 5, 7, 10 and 11; the last line is the JSON device record.
+phases 4, 5, 7, 10, 11, 12 and 13; the last line is the JSON device
+record.
 Imports nothing of JAX.
 """
 
@@ -148,6 +165,28 @@ JAX_CPU_REFERENCE_ATE_LOOP_M = 0.025552260523899487
 LOOP_FRAMES, LOOP_RADIUS, LOOP_LAPS = 170, 8.0, 1.12
 LOOP_SCENE = dict(n_points=1600, seed=5, extent=((-24, 40), (-4, 4), (-32, 32)))
 LOOP_NOISE_SIGMA = 6.0
+
+# The monocular slice (phase 12): tests/test_mono_tracking.py's scene seen
+# by the TUM fr1 camera (tum_config), moving 0.05 m sideways and 0.02 m
+# forward per frame.  ATE (m, similarity-aligned over the tracked frames)
+# of the JAX package on these 60 frames, rendered by
+# orb_line_slam_tpu_torch.data.synthetic, System(use_loop_closing=False,
+# async_loop=False), tracker.async_mapping = False, pipeline_depth = 0,
+# track_monocular, on the CPU with JAX_PLATFORMS=cpu: initialised at
+# frame 3, 57 frames tracked, 9 keyframes, final state OK.  The slow test
+# tests/test_torch_tum_references.py recomputes this and phase 13's.
+JAX_CPU_REFERENCE_ATE_MONO_M = 0.02562366931754967
+JAX_CPU_MONO_INIT_FRAME = 3
+MONO_SCENE = dict(n_points=1000, seed=12, extent=((-10, 10), (-5, 5), (4, 25)))
+MONO_STEP = (0.05, 0.0, 0.02)
+# The RGB-D slice (phase 13): a room inside a Kinect's range, the camera
+# moving 0.015 m per frame (fr1/desk's ~0.4 m/s at 30 Hz) while turning
+# 0.005 rad per frame.  The JAX package on these 60 frames, same schedule,
+# track_rgbd: 16 keyframes, final state OK.
+JAX_CPU_REFERENCE_ATE_RGBD_M = 0.0075543405184823895
+RGBD_SCENE = dict(n_points=800, seed=13, extent=((-4, 4), (-3, 3), (1, 8)))
+RGBD_VELOCITY, RGBD_YAW_RATE = (0.012, 0.0, 0.009), 0.005
+TUM_DT = 1.0 / 30.0
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth (bytes/s), float32 rate
 # outside the tensor cores (FLOP/s).
@@ -224,6 +263,37 @@ def loop_config():
                       lines=LineConfig(enabled=True, n_lines=64),
                       map=MapConfig(max_keyframes=128, max_points=16384, max_lines=1024,
                                     local_window=8, local_points=4096))
+
+
+def tum_config():
+    """What examples/mono_tum.py and rgbd_tum.py run on TUM fr1
+    (examples/configs/TUM1.yaml): its camera with the distortion zeroed
+    (the synthetic renderer draws a pinhole image), bf 40, ThDepth 40,
+    30 frames/s, DepthMapFactor 5000; OrbConfig(1000, 8 levels, scale 1.2);
+    the default LineConfig and MapConfig."""
+    from orb_line_slam_tpu_torch.config import CameraIntrinsics, OrbConfig, SlamConfig, TrackingConfig
+
+    cam = CameraIntrinsics(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989, bf=40.0, width=640, height=480)
+    return SlamConfig(camera=cam, orb=OrbConfig(n_features=1000, n_levels=8, scale_factor=1.2),
+                      tracking=TrackingConfig(th_depth=40.0, max_frames_between_kf=30), fps=30.0, rgb=True,
+                      depth_map_factor=5000.0)
+
+
+def render_tum_sequences(cfg, n_frames):
+    """Phase 12's monocular images and phase 13's (image, depth) pairs,
+    with their ground-truth poses."""
+    from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene
+
+    mono_scene = SyntheticScene(cfg.camera, **MONO_SCENE)
+    mono_poses = [(np.eye(3), -np.array(MONO_STEP) * i) for i in range(n_frames)]
+    rgbd_scene = SyntheticScene(cfg.camera, **RGBD_SCENE)
+    rgbd_poses = []
+    for i in range(n_frames):
+        a = RGBD_YAW_RATE * i
+        R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
+        rgbd_poses.append((R, -R @ (np.array(RGBD_VELOCITY) * i)))
+    return (mono_poses, [mono_scene.render(R, t) for R, t in mono_poses],
+            rgbd_poses, [rgbd_scene.render_rgbd(R, t) for R, t in rgbd_poses])
 
 
 def host_probe(tag: str):
@@ -383,20 +453,21 @@ def wrapper_host_us(fn, calls=2000):
     return statistics.median(times)
 
 
-def phase_fused_kernels(cells):
+def phase_fused_kernels(cells, mono_cells=()):
     """The fused describe and stereo-SAD kernels on the card at every
     cell's atlas shape and feature budget vs their plain versions, with
-    border and clamped keypoints among the inputs.  orb_describe: angles
-    within 1e-4 rad on >= 99.5% of keypoints, >= 99% of descriptors
-    bit-identical, median Hamming distance 0, none above 8 bits (its
-    blurred tile is a float32 sum in another order than the matrix-product
-    library's).  stereo_sad: |sad - plain| <= 1e-5 plain + 1e-2 and the
-    same best slide on >= 99.9% of rows, at the whole-number centres the
-    matcher gives it and at fractional ones.  Then CUDA-event times, own
-    device time and kernel count under torch.profiler of kernel and plain
-    version, and the bound: the larger of the needed bytes at the HBM rate
-    and the needed operations at the float32 rate.  Returns the two
-    kernels-line records."""
+    border and clamped keypoints among the inputs (a stereo cell's atlas
+    holds both images; a mono cell's, for orb_describe alone, one).
+    orb_describe: angles within 1e-4 rad on >= 99.5% of keypoints, >= 99%
+    of descriptors bit-identical, median Hamming distance 0, none above 8
+    bits (its blurred tile is a float32 sum in another order than the
+    matrix-product library's).  stereo_sad: |sad - plain| <= 1e-5 plain +
+    1e-2 and the same best slide on >= 99.9% of rows, at the whole-number
+    centres the matcher gives it and at fractional ones.  Then CUDA-event
+    times, own device time and kernel count under torch.profiler of kernel
+    and plain version, and the bound: the larger of the needed bytes at the
+    HBM rate and the needed operations at the float32 rate.  Returns the
+    two kernels-line records."""
     import torch
 
     from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
@@ -413,25 +484,28 @@ def phase_fused_kernels(cells):
     # integer work beside it.
     describe_flop = 2 * (describe.PATCH * describe.BAND_TAPS * 5) + 2 * (describe.PATCH ** 2 * describe.BAND_TAPS * 2)
     sad_flop = 231 * 7 + 121 + 11 * (121 * 4 + 11)
-    for name, cfg in cells:
-        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
-        # An image-like atlas: noise low-passed by a 5x5 box, so that
-        # intensity centroids and SAD valleys are not pure noise.
-        noise = torch.from_numpy((rng.random((2, 1, h, w)) * 255).astype(np.float32)).to(dev)
+
+    def inputs(b, h, w, n):
+        """An image-like [b, h, w] atlas (noise low-passed by a 5x5 box, so
+        that intensity centroids and SAD valleys are not pure noise), int32
+        [b, n, 2] keypoints with border and out-of-range ones among them,
+        and float32 [b, n, 2] sub-pixel offsets."""
+        noise = torch.from_numpy((rng.random((b, 1, h, w)) * 255).astype(np.float32)).to(dev)
         atlas = torch.nn.functional.avg_pool2d(noise, 5, 1, 2, count_include_pad=False)[:, 0] * 0.7 + noise[:, 0] * 0.3
-        atlas = atlas.contiguous()
-        xy = np.stack([rng.integers(-20, w + 20, (2, n)), rng.integers(-20, h + 20, (2, n))], -1)
+        xy = np.stack([rng.integers(-20, w + 20, (b, n)), rng.integers(-20, h + 20, (b, n))], -1)
         border = border_keypoints(h, w)
         xy[:, : len(border)] = border
-        axy = torch.from_numpy(xy.astype(np.int32)).to(dev)
-        delta = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, n, 2)).astype(np.float32)).to(dev)
+        delta = torch.from_numpy(rng.uniform(-0.5, 0.5, (b, n, 2)).astype(np.float32)).to(dev)
         delta[:, :3] = torch.tensor([[0.0, 0.0], [0.5, -0.5], [-0.5, 0.5]], device=dev)
+        return atlas.contiguous(), torch.from_numpy(xy.astype(np.int32)).to(dev), delta
 
-        # --- orb_describe
+    def describe_record(name, atlas, axy, delta):
+        b, h, w = atlas.shape
+        n = axy.shape[1]
         ang, desc = describe.describe_keypoints(atlas, axy, delta)
         ang_p, desc_p = describe.describe_reference(atlas, axy, delta)
         torch.cuda.synchronize()
-        check(ang.shape == (2 * n,) and desc.shape == (2 * n, 32) and desc.dtype == torch.uint8
+        check(ang.shape == (b * n,) and desc.shape == (b * n, 32) and desc.dtype == torch.uint8
               and bool(torch.isfinite(ang).all()), "orb_describe: wrong shapes or non-finite angles")
         d_ang = (ang - ang_p).abs()
         d_ang = torch.minimum(d_ang, 2 * np.pi - d_ang)
@@ -447,26 +521,34 @@ def phase_fused_kernels(cells):
         plain_own, plain_k = device_ms(lambda: describe.describe_reference(atlas, axy, delta))
         x0 = torch.clamp(axy[..., 0] - 15, 0, w - 32).long()
         y0 = torch.clamp(axy[..., 1] - 15, 0, h - 32).long()
-        n_pix = sum(covered_pixels(h, w, x0[i], y0[i], 32, 32) for i in range(2))
+        n_pix = sum(covered_pixels(h, w, x0[i], y0[i], 32, 32) for i in range(b))
         bands, rot = describe._kernel_tables_on(dev)
         n_read = n_pix * 4 + axy.numel() * 4 + delta.numel() * 4 + bands.numel() * 4 + rot.numel() * 2
-        n_written = 2 * n * 36
+        n_written = b * n * 36
         bytes_ms = (n_read + n_written) / H100_BYTES_PER_S * 1e3
-        ops_ms = 2 * n * describe_flop / H100_FP32_FLOPS * 1e3
-        print(f"orb_describe ({name}: atlas [2x{h}x{w}], N=2x{n}): angles within 1e-4 rad {ang_ok:.4f} (max diff "
+        ops_ms = b * n * describe_flop / H100_FP32_FLOPS * 1e3
+        shape = f"{name}: atlas [{b}x{h}x{w}], N={b}x{n}" if b > 1 else f"{name}: atlas [1x{h}x{w}], N={n}"
+        print(f"orb_describe ({shape}): angles within 1e-4 rad {ang_ok:.4f} (max diff "
               f"{float(d_ang.max()):.2e}), descriptors identical {same:.4f}, median {np.median(bits):.0f} bits, max "
               f"{bits.max()} bits, {'EXACTLY equal' if exact else 'not exactly equal'} to the plain version; kernel "
               f"{ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, plain {plain_ms * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us per call (CUDA events; "
               f"plain, kernel, kernel, plain); own device time {own * 1e3:.2f} us in 1 kernel (plain: "
               f"{plain_own * 1e3:.1f} us in {plain_k} kernels); bound {max(bytes_ms, ops_ms) * 1e3:.2f} us: "
               f"{n_read + n_written} bytes ({n_pix} atlas pixels under a tile) = {bytes_ms * 1e3:.2f} us at "
-              f"{H100_BYTES_PER_S / 1e12:.2f} TB/s, {2 * n * describe_flop} float32 operations = {ops_ms * 1e3:.2f} us at "
+              f"{H100_BYTES_PER_S / 1e12:.2f} TB/s, {b * n * describe_flop} float32 operations = {ops_ms * 1e3:.2f} us at "
               f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s")
-        d_records.append({"shape": f"{name}: atlas [2x{h}x{w}], N=2x{n}", "max_abs_err": float(d_ang.max()),
+        d_records.append({"shape": shape, "max_abs_err": float(d_ang.max()),
                           "descriptors_identical": same, "max_bits": int(bits.max()), "exact": exact,
                           "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
                           "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                           "library_ms": None, "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
+
+    for name, cfg in cells:
+        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
+        atlas, axy, delta = inputs(2, h, w, n)
+        describe_record(name, atlas, axy, delta)
+        x0 = torch.clamp(axy[..., 0] - 15, 0, w - 32).long()
+        y0 = torch.clamp(axy[..., 1] - 15, 0, h - 32).long()
 
         # --- stereo_sad: whole-number centres as stereo_match gives them
         # (a right column up to 100 px left of the keypoint, the same
@@ -532,6 +614,11 @@ def phase_fused_kernels(cells):
             print("wrapper host time with no keypoints (nothing launched), us per call: "
                   + json.dumps({k: round(v, 2) for k, v in host.items()}))
 
+    # A mono or RGB-D frame describes its keypoints on a batch of one.
+    for name, cfg in mono_cells:
+        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
+        describe_record(name, *inputs(1, h, w, n))
+
     def summary(records):
         return {**records[0], "max_abs_err": max(r["max_abs_err"] for r in records), "by_shape": records}
 
@@ -546,20 +633,13 @@ def render_sequence(cfg, n_frames, scene_kw=None, step=0.25):
     return poses, [scene.render_stereo(R, t) for R, t in poses]
 
 
-def phase_frame(cfg, pair):
-    """build_stereo_frame on the card vs the plain path on the CPU; on the
-    card it launches exactly one orb_describe and one stereo_sad kernel and
-    makes no [N, 32, 32] tile tensor."""
+def tile_watch(n_feat):
+    """A TorchDispatchMode class that records every operator output shaped
+    [>= n_feat, ..., 32, 32]: a tile tensor of the frame's keypoints."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frame
-
-    n_feat = cfg.orb.n_features
-
     class TileWatch(TorchDispatchMode):
-        """Records every operator output shaped [>= N, ..., 32, 32]."""
-
         def __init__(self):
             super().__init__()
             self.seen = []
@@ -572,6 +652,18 @@ def phase_frame(cfg, pair):
                     self.seen.append((str(func), tuple(t.shape)))
             return out
 
+    return TileWatch
+
+
+def phase_frame(cfg, pair):
+    """build_stereo_frame on the card vs the plain path on the CPU; on the
+    card it launches exactly one orb_describe and one stereo_sad kernel and
+    makes no [N, 32, 32] tile tensor."""
+    import torch
+
+    from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frame
+
+    TileWatch = tile_watch(cfg.orb.n_features)
     l, r = (torch.from_numpy(x) for x in pair)
     fc = build_stereo_frame(l, r, cfg).numpy()
     lg, rg = l.cuda(), r.cuda()
@@ -651,31 +743,88 @@ def phase_stereo_match_kernel_vs_plain(cfg, pair):
 
 
 def phase_single_image(cfg, frames, n_images=5):
-    """extract_orb, the single-image entry point, on the card: it returns
-    sub-pixel-shifted tiles, so it is the path that keeps the patch-tile
-    gather (one launch per image).  Held to the CPU plain path under the
-    frame contract's keypoint and descriptor terms.  Returns the launches."""
+    """extract_orb_with_tiles, the single-image entry point that returns
+    sub-pixel-shifted tiles, on the card: it is the path that keeps the
+    patch-tile gather (one launch per image, no orb_describe).  Held to the
+    CPU plain path under the frame contract's keypoint and descriptor
+    terms.  Returns the launches."""
     import torch
 
-    from orb_line_slam_tpu_torch.frontend.orb_extractor import extract_orb
+    from orb_line_slam_tpu_torch.frontend.orb_extractor import extract_orb_with_tiles
 
     reset_launches()
     for l, _ in frames[:n_images]:
-        fg = extract_orb(torch.from_numpy(l).cuda(), cfg.orb)
+        fg, tiles = extract_orb_with_tiles(torch.from_numpy(l).cuda(), cfg.orb)
     torch.cuda.synchronize()
     launches = read_launches()
     check(launches == {"patch_tiles": n_images, "orb_describe": 0, "stereo_sad": 0},
-          f"extract_orb on {n_images} images launched {launches} (want one patch_tiles per image)")
-    fc = extract_orb(torch.from_numpy(frames[n_images - 1][0]), cfg.orb)
+          f"extract_orb_with_tiles on {n_images} images launched {launches} (want one patch_tiles per image)")
+    check(tiles.shape == (cfg.orb.n_features, 32, 32) and tiles.is_cuda, f"tiles {tuple(tiles.shape)}")
+    fc, _ = extract_orb_with_tiles(torch.from_numpy(frames[n_images - 1][0]), cfg.orb)
     vc, vg = fc.valid.numpy(), fg.valid.cpu().numpy()
     both = vc & vg
     d_xy = float(np.abs(fc.xy.numpy()[both] - fg.xy.cpu().numpy()[both]).max())
     bits = np.unpackbits(fc.desc.numpy()[both] ^ fg.desc.cpu().numpy()[both], axis=1).sum(1)
-    print(f"single image (extract_orb) GPU vs CPU: {n_images} images, {launches['patch_tiles']} patch-tile launches, "
-          f"valid agreement {(vc == vg).mean():.4f}, max keypoint diff {d_xy:.2e} px, median desc bits {np.median(bits):.0f}")
+    print(f"single image with tiles (extract_orb_with_tiles) GPU vs CPU: {n_images} images, "
+          f"{launches['patch_tiles']} patch-tile launches, valid agreement {(vc == vg).mean():.4f}, max keypoint diff "
+          f"{d_xy:.2e} px, median desc bits {np.median(bits):.0f}")
     check((vc == vg).mean() > 0.98 and d_xy < 0.51 and np.median(bits) <= 1,
-          "extract_orb on the card breaks the frame contract against the CPU plain path")
+          "extract_orb_with_tiles on the card breaks the frame contract against the CPU plain path")
     return launches
+
+
+def phase_mono_rgbd_frames(cfg, img, depth):
+    """build_mono_frame and build_rgbd_frame on one TUM-size image on the
+    card: each launches exactly one orb_describe (a batch of one) and no
+    patch_tiles, makes no [N, 32, 32] tensor, and holds to its CPU plain
+    path under the frame contract (valid agreement > 0.98, keypoints
+    within 0.51 px, median descriptor distance <= 1 bit; RGB-D: depth-hit
+    agreement > 0.95, > 95% of depths within 1%).  Returns the CUDA-event
+    ms of each frame (median of 20)."""
+    import torch
+
+    from orb_line_slam_tpu_torch.frontend.frame import build_mono_frame, build_rgbd_frame
+
+    TileWatch = tile_watch(cfg.orb.n_features)
+    times = {}
+    for kind, build, args in (("mono", build_mono_frame, (img,)), ("rgbd", build_rgbd_frame, (img, depth))):
+        cpu_args = tuple(torch.from_numpy(a) for a in args)
+        gpu_args = tuple(a.cuda() for a in cpu_args)
+        fc = build(*cpu_args, cfg).numpy()
+        build(*gpu_args, cfg)
+        reset_launches()
+        with TileWatch() as watch:
+            fg = build(*gpu_args, cfg)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 0},
+              f"build_{kind}_frame on the card launched {launches} (want one orb_describe and nothing else)")
+        check(not watch.seen, f"build_{kind}_frame on the card made tile tensors: {watch.seen[:3]}")
+        check(fg.xy.is_cuda and fg.depth.is_cuda, f"build_{kind}_frame left the card")
+        fg = fg.numpy()
+        agree = float((fc.valid == fg.valid).mean())
+        both = fc.valid & fg.valid
+        d_xy = float(np.abs(fc.xy[both] - fg.xy[both]).max())
+        bits = np.unpackbits(fc.desc[both] ^ fg.desc[both], axis=1).sum(1)
+        ok = agree > 0.98 and d_xy < 0.51 and np.median(bits) <= 1
+        dc, dg = fc.depth[both], fg.depth[both]
+        extra = ""
+        if kind == "mono":
+            ok = ok and bool((fg.depth == -1).all() and (fg.u_right == -1).all())
+        else:
+            hit_agree = float(((dc > 0) == (dg > 0)).mean())
+            hit = (dc > 0) & (dg > 0)
+            frac = float((np.abs(dc[hit] - dg[hit]) / np.maximum(dg[hit], 1e-6) < 0.01).mean())
+            ok = ok and hit_agree > 0.95 and frac > 0.95 and hit.sum() > 100
+            extra = f", depth-hit agreement {hit_agree:.4f}, depths within 1% {frac:.4f} ({int(hit.sum())} depths)"
+        ms = cuda_times_ms(lambda: build(*gpu_args, cfg))
+        times[kind] = ms
+        print(f"{kind} frame (build_{kind}_frame, 480x640, {cfg.orb.n_features} features, {cfg.orb.n_levels} levels) GPU vs "
+              f"CPU: launches {json.dumps(launches)}, no [N, 32, 32] tensor; valid agreement {agree:.4f}, max keypoint "
+              f"diff {d_xy:.2e} px, median desc bits {np.median(bits):.0f} ({(bits == 0).mean():.4f} identical){extra}; "
+              f"{ms:.2f} ms per frame (CUDA events, median of 20)")
+        check(ok, f"the {kind} frame on the card breaks the frame contract against the CPU plain path")
+    return times
 
 
 def phase_bench_ba(cfg):
@@ -742,16 +891,20 @@ def add_launches(total, part):
 
 
 def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=False, warmup=WARMUP_FRAMES,
-              window=None):
-    """Drive System.track_stereo on the card over the frames, with every
-    kernel's launch count set to 0 just before and read just after: on
-    the pinned schedule, or with shipping=True on the System's defaults.
+              window=None, sensor="stereo"):
+    """Drive the System on the card over the frames (``sensor`` "stereo":
+    (left, right) pairs through track_stereo; "mono": images through
+    track_monocular; "rgbd": (image, depth) pairs through track_rgbd), with
+    every kernel's launch count set to 0 just before and read just after:
+    on the pinned schedule, or with shipping=True on the System's defaults.
     The tracking thread's stream is synchronised after each frame (not
     the device: the workers' solves run on their own streams).  A
     ProfileWindow `window` profiles a few frames of the run; they are left
     out of its frames/s and per-frame times.  Returns (System, launches
-    per kernel, fps over frames warmup.., ATE, the per-frame host ms
-    {p50, p90, max} over the same frames)."""
+    per kernel, fps over frames warmup.. (warmup None: the frames after
+    the first tracked one), ATE (a monocular run's over its tracked
+    frames, similarity-aligned), the per-frame host ms {p50, p90, max}
+    over the same frames)."""
     import torch
 
     from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
@@ -764,14 +917,15 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
         slam.tracker.async_mapping = False
     check(slam.tracker.async_mapping == slam.async_loop == slam.gba_async == shipping,
           f"{name}: the System's schedule is not the one asked for")
+    track = {"stereo": slam.track_stereo, "mono": slam.track_monocular, "rgbd": slam.track_rgbd}[sensor]
     stream = torch.cuda.current_stream()
     reset_launches()
     frame_ms = []
-    for i, (l, r) in enumerate(frames):
+    for i, fr in enumerate(frames):
         if window is not None:
             window.before(i)
         t0 = time.perf_counter()
-        slam.track_stereo(l, r, timestamp=dt * i)
+        track(*(fr if isinstance(fr, tuple) else (fr,)), timestamp=dt * i)
         stream.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         if window is not None:
@@ -783,7 +937,14 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     est = np.stack([-R.T @ t for (_, _, R, t, _) in traj])
     gt = np.stack([-R.T @ t for (R, t) in poses])
     check(np.isfinite(est).all() and est.shape == gt.shape, f"{name}: trajectory not finite / wrong shape {est.shape}")
-    ate = float(ate_rmse(est, gt, align=True))
+    tracked = np.array([not lost for (_, _, _, _, lost) in traj])
+    check(tracked.any(), f"{name}: no frame was tracked")
+    if warmup is None:
+        warmup = int(np.argmax(tracked)) + 1
+    if sensor == "mono":    # scale-free: similarity alignment over the tracked frames
+        ate = float(ate_rmse(est[tracked], gt[tracked], align=True, with_scale=True))
+    else:
+        ate = float(ate_rmse(est, gt, align=True))
     profiled_frames = window.frames if window is not None else set()
     steady = np.asarray([ms for i, ms in enumerate(frame_ms) if i >= warmup and i not in profiled_frames])
     fps = len(steady) / (steady.sum() / 1e3)
@@ -813,10 +974,12 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     check(slam.tracking_state() == "OK", f"{name}: final state {slam.tracking_state()}")
     check(n_kf >= 3, f"{name}: only {n_kf} keyframes")
     check(tr.n_local_ba >= 1, f"{name}: no local BA was applied")
-    # Two hand-written kernels per stereo pair, and no tile gather.
-    check(launches == {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": len(frames)},
-          f"{name}: kernel launches {launches} for {len(frames)} frames (want one orb_describe and one stereo_sad "
-          f"per frame and no patch_tiles)")
+    # Two hand-written kernels per stereo pair, one orb_describe per mono or
+    # RGB-D frame, and no tile gather.
+    n_sad = len(frames) if sensor == "stereo" else 0
+    check(launches == {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": n_sad},
+          f"{name}: kernel launches {launches} for {len(frames)} frames (want one orb_describe"
+          + (" and one stereo_sad" if n_sad else " and nothing else") + " per frame)")
     return slam, launches, fps, ate, per_frame
 
 
@@ -1461,6 +1624,46 @@ def phase_shipping_circuit(poses, frames, pinned_ate):
     return launches, fps, per_frame, ate, slam.n_loops_closed
 
 
+def phase_mono_slice(cfg, poses, frames):
+    """Phase 12: System.track_monocular on the card, pinned, over 60
+    TUM-size frames: state OK, initialised at the JAX package's frame,
+    >= 3 keyframes, >= 1 local BA, > 80 map points, one orb_describe per
+    frame and nothing else, and the similarity-aligned ATE no more than
+    10% + 1 cm above the JAX package's.  Frames/s and per-frame host ms
+    over the frames after initialization."""
+    slam, launches, fps, ate, per_frame = run_slice(cfg, poses, frames, "mono slice", TUM_DT, warmup=None,
+                                                    sensor="mono")
+    traj = slam.tracker.final_trajectory()
+    init = next(i for i, e in enumerate(traj) if not e[4])
+    n_pts = int(slam.map.pt_valid.sum())
+    n_tracked = sum(not e[4] for e in traj)
+    print(f"mono slice: initialised at frame {init} (JAX CPU: {JAX_CPU_MONO_INIT_FRAME}), {n_tracked} frames tracked, "
+          f"{n_pts} map points, {fps:.2f} frames/s over frames {init + 1}-{len(frames) - 1}, per-frame host ms p50 "
+          f"{per_frame['p50']:.1f} p90 {per_frame['p90']:.1f} max {per_frame['max']:.1f}, ATE {ate:.5f} m "
+          f"(similarity-aligned; JAX CPU reference {JAX_CPU_REFERENCE_ATE_MONO_M:.5f} m)")
+    check(slam.tracker.is_mono, "mono slice: the tracker is not monocular")
+    check(init == JAX_CPU_MONO_INIT_FRAME, f"mono slice: initialised at frame {init}, the JAX package at "
+                                           f"{JAX_CPU_MONO_INIT_FRAME}")
+    check(n_pts > 80, f"mono slice: only {n_pts} map points")
+    check_ate("mono slice", ate, JAX_CPU_REFERENCE_ATE_MONO_M)
+    return launches, fps, per_frame, ate
+
+
+def phase_rgbd_slice(cfg, poses, frames):
+    """Phase 13: System.track_rgbd on the card, pinned, over 60 TUM-size
+    frames of a room: state OK, >= 3 keyframes, >= 1 local BA, one
+    orb_describe per frame and nothing else, ATE no more than 10% + 1 cm
+    above the JAX package's."""
+    slam, launches, fps, ate, per_frame = run_slice(cfg, poses, frames, "rgbd slice", TUM_DT, sensor="rgbd")
+    print(f"rgbd slice: {fps:.2f} frames/s over frames {WARMUP_FRAMES}-{len(frames) - 1}, per-frame host ms p50 "
+          f"{per_frame['p50']:.1f} p90 {per_frame['p90']:.1f} max {per_frame['max']:.1f}, "
+          f"{int(slam.map.pt_valid.sum())} map points, ATE {ate:.5f} m (JAX CPU reference "
+          f"{JAX_CPU_REFERENCE_ATE_RGBD_M:.5f} m)")
+    check(not slam.tracker.is_mono, "rgbd slice: the tracker is monocular")
+    check_ate("rgbd slice", ate, JAX_CPU_REFERENCE_ATE_RGBD_M)
+    return launches, fps, per_frame, ate
+
+
 PROFILE_START, PROFILE_FRAMES = 33, 3
 # (module, function, range name): the stages a profile range is opened
 # around.  Nested ranges (the line pose terms inside the tracking step,
@@ -1586,10 +1789,10 @@ def main():
           "TF32 is enabled")
     phase_build()
     metrics, launches = {}, {}
-    cfg, lcfg, ccfg = kitti_config(), euroc_config(), loop_config()
+    cfg, lcfg, ccfg, tcfg = kitti_config(), euroc_config(), loop_config(), tum_config()
     cells = (("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg))
     kern = {"patch_tiles": phase_kernel(cells)}
-    kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells)
+    kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells, (("TUM cell", tcfg),))
     done("phases 1-3")
     t0 = time.perf_counter()
     poses, frames = render_sequence(cfg, N_FRAMES)
@@ -1597,6 +1800,12 @@ def main():
     metrics["stereo_frontend_fps"] = phase_frame(cfg, frames[0])
     phase_stereo_match_kernel_vs_plain(cfg, frames[0])
     add_launches(launches, phase_single_image(cfg, frames))
+    t0 = time.perf_counter()
+    mposes, mframes, rposes, rframes = render_tum_sequences(tcfg, N_FRAMES)
+    print(f"rendered {N_FRAMES} TUM-size mono images and {N_FRAMES} RGB-D pairs in {time.perf_counter() - t0:.1f} s "
+          f"(host, set-up)")
+    tum_ms = phase_mono_rgbd_frames(tcfg, *rframes[0])
+    metrics["mono_frontend_ms"], metrics["rgbd_frontend_ms"] = tum_ms["mono"], tum_ms["rgbd"]
     metrics["local_ba_iter_ms"] = phase_bench_ba(cfg)
     n, metrics["points_pipeline_fps"], metrics["local_ba_ms_per_solve"], metrics["ate_rmse_synth_m"] = \
         phase_slice(cfg, poses, frames)
@@ -1632,10 +1841,18 @@ def main():
         metrics["ate_ship_loops"] = phase_shipping_circuit(cposes, cframes, metrics["ate_rmse_loop_m"])
     add_launches(launches, n)
     done("phase 11")
+    n, metrics["mono_pipeline_fps"], metrics["mono_frame_host_ms"], metrics["ate_rmse_mono_m"] = \
+        phase_mono_slice(tcfg, mposes, mframes)
+    add_launches(launches, n)
+    n, metrics["rgbd_pipeline_fps"], metrics["rgbd_frame_host_ms"], metrics["ate_rmse_rgbd_m"] = \
+        phase_rgbd_slice(tcfg, rposes, rframes)
+    add_launches(launches, n)
+    done("phases 12-13")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
     # launches: orb_describe and stereo_sad over the slices' stereo frames
-    # (phases 5, 7, 10 and 11), patch_tiles over the single-image path
+    # (phases 5, 7, 10 and 11), orb_describe over the mono and RGB-D frames
+    # (phases 12 and 13), patch_tiles over the single-image path with tiles
     # (phase 4), each read just after its path with the counts set to 0
     # just before it.
     check(all(launches.get(name, 0) > 0 for name in KERNELS), f"a kernel was never launched on its path: {launches}")

@@ -12,7 +12,9 @@ XLA's CPU backend associates ``jnp.cumsum`` (sequential runs of 16,
 then the same scan over the run totals).  Which rows path B's 128
 hypotheses take decides, on a weakly supported frame, which of two pose
 basins the solve falls into, so a different draw is a different
-trajectory.
+trajectory.  ``fold_in`` derives a key as ``jax.random.fold_in`` does, for
+the monocular initializer's second draw
+(``frontend/initializer.py:184-189``).
 """
 
 from __future__ import annotations
@@ -105,12 +107,34 @@ def _threefry2x32(k1: int, k2: int, x1: np.ndarray, x2: np.ndarray):
     return x1, x2
 
 
-@functools.lru_cache(maxsize=64)
-def jax_uniform(seed: int, n: int) -> np.ndarray:
-    """``jax.random.uniform(jax.random.PRNGKey(seed), (n,))`` bit for bit
-    (threefry keys, partitionable counters; float32 in [0, 1))."""
+def prng_key(seed: int) -> tuple[int, int]:
+    """The uint32 pair of ``jax.random.PRNGKey(seed)`` (threefry keys)."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
-    b1, b2 = _threefry2x32(s >> 32, s & 0xFFFFFFFF, np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
+    return s >> 32, s & 0xFFFFFFFF
+
+
+def fold_in(key, data: int) -> tuple[int, int]:
+    """``jax.random.fold_in(key, data)`` as a uint32 pair: threefry-2x32
+    of the key on the counter pair (0, data).  ``key`` is a seed (an int,
+    read as ``PRNGKey(seed)``) or a pair."""
+    k1, k2 = _as_key(key)
+    a, b = _threefry2x32(k1, k2, np.zeros(1, np.uint32), np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return int(a[0]), int(b[0])
+
+
+def _as_key(key) -> tuple[int, int]:
+    if isinstance(key, (int, np.integer)):
+        return prng_key(int(key))
+    k1, k2 = key
+    return int(k1), int(k2)
+
+
+@functools.lru_cache(maxsize=64)
+def jax_uniform(key, n: int) -> np.ndarray:
+    """``jax.random.uniform(key, (n,))`` bit for bit (threefry keys,
+    partitionable counters; float32 in [0, 1)); ``key`` is a seed, read as
+    ``PRNGKey(seed)``, or a raw uint32 pair such as ``fold_in`` returns."""
+    b1, b2 = _threefry2x32(*_as_key(key), np.zeros(n, np.uint32), np.arange(n, dtype=np.uint32))
     bits = (b1 ^ b2) >> np.uint32(9) | np.uint32(0x3F800000)
     u = bits.view(np.float32) - np.float32(1.0)
     u.setflags(write=False)
@@ -118,8 +142,8 @@ def jax_uniform(seed: int, n: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
-def _uniform_on(seed: int, n: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(jax_uniform(seed, n).copy()).to(device)
+def _uniform_on(key: tuple[int, int], n: int, device: str) -> torch.Tensor:
+    return torch.from_numpy(jax_uniform(key, n).copy()).to(device)
 
 
 def xla_cumsum(x: torch.Tensor, run: int = 16) -> torch.Tensor:
@@ -142,14 +166,15 @@ def xla_cumsum(x: torch.Tensor, run: int = 16) -> torch.Tensor:
     return (loc + carry[:, None]).reshape(-1)[:n]
 
 
-def draw_hypotheses(valid: torch.Tensor, seed: int, n_hyps: int = 128, sample_size: int = 6) -> torch.Tensor:
-    """Row indices [n_hyps, sample_size] of ``jax.random.choice(
-    PRNGKey(seed), N, (n_hyps, sample_size), replace=True,
-    p=valid / max(n_valid, 1))``.  With no valid row every index is 0."""
+def draw_hypotheses(valid: torch.Tensor, key, n_hyps: int = 128, sample_size: int = 6) -> torch.Tensor:
+    """Row indices [n_hyps, sample_size] of ``jax.random.choice(key, N,
+    (n_hyps, sample_size), replace=True, p=valid / max(n_valid, 1))``;
+    ``key`` is a seed, read as ``PRNGKey(seed)``, or a uint32 pair.  With no
+    valid row every index is 0."""
     p = valid.to(torch.float32)
     p = p / torch.clamp(p.sum(), min=1.0)
     cum = xla_cumsum(p)
-    u = _uniform_on(int(seed), n_hyps * sample_size, str(valid.device))
+    u = _uniform_on(_as_key(key), n_hyps * sample_size, str(valid.device))
     idx = torch.searchsorted(cum, cum[-1] * (1.0 - u))
     return idx.reshape(n_hyps, sample_size)
 

@@ -1,9 +1,12 @@
-"""Frame construction: the per-frame front end of the stereo path.
+"""Frame construction: the per-frame front end.
 
-Port of ``orb_line_slam_tpu/frontend/frame.py:27-74`` (``Frame`` and
-``build_stereo_frame``): dual ORB extraction, stereo matching with SAD
-sub-pixel depth, keypoint undistortion.  Everything stays on the device
-of the input images.
+Port of ``orb_line_slam_tpu/frontend/frame.py`` — ``Frame`` and
+``build_stereo_frame`` (27-74): dual ORB extraction, stereo matching with
+SAD sub-pixel depth, keypoint undistortion; ``build_rgbd_frame`` and
+``build_mono_frame`` (77-116): single-image extraction
+(``extract_orb``, one fused describe launch) with depths read from a
+registered depth map, or none.  Everything stays on the device of the
+input images.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from ..config import SlamConfig
 from ..geometry.camera import undistort_points
-from .orb_extractor import extract_orb_stereo
+from .orb_extractor import extract_orb, extract_orb_stereo
 from .stereo import stereo_match
 
 
@@ -52,4 +55,46 @@ def build_stereo_frame(img_left: torch.Tensor, img_right: torch.Tensor, cfg: Sla
         valid=featL.valid,
         u_right=sm.u_right,
         depth=sm.depth,
+    )
+
+
+def build_rgbd_frame(img: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig) -> Frame:
+    """RGB-D frame (``frame.py:77-99``, Frame::ComputeStereoFromRGBD):
+    the depth of each keypoint read at its rounded (half to even), clipped
+    pixel of the registered float32 depth map [H, W] (m), and a synthetic
+    right coordinate u_right = u - bf / depth from the distorted x; both -1
+    where the depth is not positive."""
+    feat = extract_orb(img, cfg.orb)
+    h, w = depth_map.shape
+    xi = torch.clamp(torch.round(feat.xy[:, 0]).to(torch.int32), 0, w - 1).long()
+    yi = torch.clamp(torch.round(feat.xy[:, 1]).to(torch.int32), 0, h - 1).long()
+    d = depth_map[yi, xi].to(torch.float32)
+    ok = feat.valid & (d > 0)
+    none = torch.full_like(d, -1.0)
+    return Frame(
+        xy=undistort_points(cfg.camera, feat.xy),
+        response=feat.response,
+        angle=feat.angle,
+        octave=feat.octave,
+        desc=feat.desc,
+        valid=feat.valid,
+        u_right=torch.where(ok, feat.xy[:, 0] - cfg.camera.bf / torch.clamp(d, min=1e-6), none),
+        depth=torch.where(ok, d, none),
+    )
+
+
+def build_mono_frame(img: torch.Tensor, cfg: SlamConfig) -> Frame:
+    """Monocular frame (``frame.py:102-116``): no depth channel, u_right
+    and depth -1 everywhere."""
+    feat = extract_orb(img, cfg.orb)
+    none = torch.full((feat.n,), -1.0, device=feat.xy.device)
+    return Frame(
+        xy=undistort_points(cfg.camera, feat.xy),
+        response=feat.response,
+        angle=feat.angle,
+        octave=feat.octave,
+        desc=feat.desc,
+        valid=feat.valid,
+        u_right=none,
+        depth=none.clone(),
     )

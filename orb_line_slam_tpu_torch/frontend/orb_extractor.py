@@ -9,8 +9,10 @@ Port of ``orb_line_slam_tpu/frontend/orb_extractor.py`` —
 reason).  The stereo pair runs as one [2, H, W] batch through pyramid
 and detection, and one fused kernel launch (``ops/describe.py``) cuts
 both images' tiles, shifts and blurs them and takes orientation and
-BRIEF without writing a tile.  ``extract_orb_with_tiles`` returns tiles,
-so it keeps the patch-tile gather (``ops/patches.py``).
+BRIEF without writing a tile; ``extract_orb`` (the mono and RGB-D
+frames' extraction) launches the same kernel on a batch of one.
+``extract_orb_with_tiles`` returns tiles, so it keeps the patch-tile
+gather (``ops/patches.py``).
 """
 
 from __future__ import annotations
@@ -121,14 +123,19 @@ def _level_offsets(levels) -> list[int]:
     return offs
 
 
+def _detect_image(image: torch.Tensor, cfg: OrbConfig):
+    """Pyramid atlas [H_atlas, W] and per-level detection of one [H, W]
+    image: (atlas, xy, axy, resp, octave, valid, delta)."""
+    levels = build_pyramid(image.to(torch.float32), cfg.n_levels, cfg.scale_factor)
+    atlas, _ = pyramid_atlas(levels)
+    return (atlas, *_detect_all_levels(levels, _level_offsets(levels), cfg))
+
+
 def extract_orb_with_tiles(image: torch.Tensor, cfg: OrbConfig):
     """Multi-level ORB extraction of one [H, W] image; also returns the
     sub-pixel-shifted patch tiles [N, 32, 32] (keypoint at (15, 15) in
     its own level)."""
-    img = image.to(torch.float32)
-    levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-    atlas, _ = pyramid_atlas(levels)
-    xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, _level_offsets(levels), cfg)
+    atlas, xy, axy, resp, octv, valid, deltas = _detect_image(image, cfg)
     tiles_raw = gather_patch_tiles(atlas, axy.contiguous())
     tiles = shift_tiles(tiles_raw, deltas)
     tiles_blur = shift_blur_tiles(tiles_raw, deltas)
@@ -138,8 +145,14 @@ def extract_orb_with_tiles(image: torch.Tensor, cfg: OrbConfig):
 
 
 def extract_orb(image: torch.Tensor, cfg: OrbConfig) -> FrameFeatures:
-    """Multi-level ORB extraction of a uint8 or float32 [H, W] image."""
-    return extract_orb_with_tiles(image, cfg)[0]
+    """Multi-level ORB extraction of a uint8 or float32 [H, W] image
+    (``orb_extractor.py:265-276``): the keypoints of ``extract_orb_with_tiles``
+    described by the fused kernel on a batch of one, so no tile tensor is
+    made on the card.  On the CPU it equals ``extract_orb_with_tiles(...)[0]``
+    bit for bit."""
+    atlas, xy, axy, resp, octv, valid, deltas = _detect_image(image, cfg)
+    angles, desc = describe_keypoints(atlas[None], axy[None].contiguous(), deltas[None].contiguous())
+    return FrameFeatures(xy=xy, response=resp, angle=angles, octave=octv, desc=desc, valid=valid)
 
 
 def extract_orb_stereo(img_left: torch.Tensor, img_right: torch.Tensor, cfg: OrbConfig):

@@ -3,7 +3,8 @@
 Port of ``orb_line_slam_tpu/matching/point_matcher.py`` —
 ``rotation_consistency`` (39-56), ``match_descriptors`` (59-77),
 ``predict_scale`` (80-87), ``search_by_projection`` (90-182),
-``search_by_sim3_dir`` (188-225) and ``resolve_duplicates`` (228-245): distance matrix + geometric mask +
+``search_by_sim3_dir`` (188-225), ``resolve_duplicates`` (228-245) and
+``match_in_window`` (249-269): distance matrix + geometric mask +
 best/second-best + ratio test + 30-bin rotation histogram, with the
 reference's thresholds.  Leading batch dims are not supported; callers
 loop over the few keyframe pairs.
@@ -162,3 +163,17 @@ def resolve_duplicates(matches: Matches, n_targets: int) -> Matches:
     first = first.scatter_reduce(0, torch.where(keep, tgt, n_targets), order, reduce="amin")
     keep = keep & (first[tgt] == order)
     return Matches(_neg1(matches.idx, keep), matches.dist, keep)
+
+
+def match_in_window(frame_a, frame_b, radius: float = 100.0, max_dist: int = TH_LOW,
+                    ratio: float = 0.9) -> Matches:
+    """Frame-to-frame matching windowed around each keypoint's own location
+    (``point_matcher.py:249-269``, SearchForInitialization: the window keeps
+    the ratio test from drowning in far-away confusers)."""
+    dist = hamming_matrix(frame_a.desc, frame_b.desc)
+    du = frame_a.xy[:, 0:1] - frame_b.xy[None, :, 0]
+    dv = frame_a.xy[:, 1:2] - frame_b.xy[None, :, 1]
+    close = (du * du + dv * dv) <= radius * radius
+    idx, d1, d2 = knn2(dist, close & frame_b.valid[None, :])
+    ok = frame_a.valid & (d1 < max_dist) & (d1.to(torch.float32) < ratio * d2.to(torch.float32))
+    return Matches(_neg1(idx, ok), d1, ok)

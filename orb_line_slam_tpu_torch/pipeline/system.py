@@ -1,9 +1,10 @@
-"""System facade — the embedder-facing API of the stereo path.
+"""System facade — the embedder-facing API.
 
 Port of ``orb_line_slam_tpu/pipeline/system.py``: the constructor and
-its schedule (31-69), ``track_stereo`` (116-119), ``_on_keyframe``
-(137-206: the vocabulary trained on the fly from the first keyframes'
-descriptors, the ``LoopCloser`` with its switches and
+its schedule (31-69), ``track_stereo``, ``track_monocular`` and
+``track_rgbd`` (116-134), ``_on_keyframe`` (137-206: the vocabulary
+trained on the fly from the first keyframes' descriptors, the
+``LoopCloser`` with its switches, a free scale on a monocular map, and
 ``pre_correct_hook``, the pending global BA polled before each keyframe,
 the tracker's pose reset after a closure), ``_reloc_candidates``
 (208-217), the localization mode (220-228), ``reset`` (230-235),
@@ -17,9 +18,9 @@ another (``gba_async``), on the CUDA card.  Every comparison with the
 pinned JAX schedule (``bench.py:269-276``) pins all three:
 ``System(..., async_loop=False)``, ``gba_async = False``,
 ``tracker.async_mapping = False``.  Stereo tracking runs with points and,
-under the default ``LineConfig(enabled=True)``, lines.  Not ported:
-monocular and RGB-D input, and the warmups (there is nothing to compile
-ahead of time).
+under the default ``LineConfig(enabled=True)``, lines; monocular and
+RGB-D tracking with points only, as in the reference.  Not ported: the
+warmups (there is nothing to compile ahead of time).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 
 from ..config import SlamConfig, load_settings
 from ..eval.trajectory import save_trajectory_kitti, save_trajectory_tum
+from ..frontend.frame import build_rgbd_frame
 from ..loop.loop_closing import LoopCloser
 from ..loop.vocabulary import Vocabulary
 from .tracking import Tracker, checked_device
@@ -67,6 +69,21 @@ class System:
         """Feed a rectified stereo pair (uint8 [H, W]); returns the 4x4 Tcw."""
         return self.tracker.process_stereo(img_left, img_right, timestamp)
 
+    def track_monocular(self, img, timestamp: float = 0.0) -> np.ndarray:
+        """Feed one grayscale image (uint8 [H, W]); returns the 4x4 Tcw,
+        the identity until monocular initialization succeeds
+        (System::TrackMonocular)."""
+        return self.tracker.process_mono(img, timestamp)
+
+    def track_rgbd(self, img, depth, timestamp: float = 0.0) -> np.ndarray:
+        """Feed a grayscale image (uint8 [H, W]) and its registered depth
+        map (float32 [H, W], m); returns the 4x4 Tcw (System::TrackRGBD)."""
+        tr = self.tracker
+        tr.frame_id += 1
+        with tr.timing.stage("frontend"):
+            frame = build_rgbd_frame(tr._to_device(img), tr._to_device(depth), self.cfg)
+        return tr._track(frame, None, timestamp)
+
     # ------------------------------------------------------------------
     def _on_keyframe(self, kf_id: int):
         if self.localization_only or not self.use_loop_closing:
@@ -92,7 +109,9 @@ class System:
             self.loop_closer = LoopCloser(self.cfg, self.tracker.map, self.voc, device=self.device)
             self.loop_closer.gba_async = self.gba_async
             self.loop_closer.async_detect = self.async_loop
-            self.loop_closer.fix_scale = True   # stereo: the map has metric scale
+            # A monocular map drifts in scale: the loop's Sim3 estimates it
+            # (the reference's bFixScale = sensor != MONOCULAR).
+            self.loop_closer.fix_scale = not self.tracker.is_mono
             self.tracker.reloc_candidates_fn = self._reloc_candidates
             self.loop_closer.pre_correct_hook = self._drain_mapping
         # Apply a finished global BA before touching the map.

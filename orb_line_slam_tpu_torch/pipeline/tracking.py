@@ -1,8 +1,12 @@
 """Per-frame tracking state machine with local mapping.
 
-Port of ``orb_line_slam_tpu/pipeline/tracking.py`` for the stereo path,
-points and lines, with pipeline depth 0 (every frame is consumed as soon
-as it is tracked).  Ported: ``process_stereo`` (200-240), ``flush``
+Port of ``orb_line_slam_tpu/pipeline/tracking.py`` for the stereo,
+monocular and RGB-D paths, points and lines, with pipeline depth 0
+(every frame is consumed as soon as it is tracked).  Ported:
+``process_stereo`` (200-240), ``process_mono`` (246-260) with
+``_try_mono_initialize`` (274-351: the reference frame slides while the
+windowed matches are too few, the two-view H/F initializer, the map
+scaled to a median depth of 1, two keyframes and a local BA), ``flush``
 (262-271), ``_track`` (365-393), ``_consume``/``_process_entry``
 (485-559), ``_refresh_mirror`` (567-709, as a plain tensor mirror),
 ``_record``/``_on_kf_culled``/``final_trajectory`` (718-769),
@@ -10,15 +14,18 @@ as it is tracked).  Ported: ``process_stereo`` (200-240), ``flush``
 ``_pose_opt_from_assoc``, ``_track_reference_kf``, ``_relocalize``
 (816-928: keyframe-database candidates from ``reloc_candidates_fn`` when
 the loop module is wired in, else recent keyframes), ``_need_keyframe``
-(931-956, with ``localization_only``), ``_create_keyframe_locked``
-(967-1193: line stats, ``set_kf_lines``, stereo line creation, line
-fuse, two-view lines, line culling, and the ``on_keyframe`` hook before
-the mapping work, with the pose refresh and re-anchoring after a loop
-correction, 1131-1157), ``_local_ba``/``_apply_ba`` (1261-1358: the
+(931-956, with ``localization_only`` and the monocular ratio),
+``_create_keyframe_locked`` (967-1193: line stats, ``set_kf_lines``,
+stereo line creation, line fuse, two-view lines (always on a monocular
+map), line culling, and the ``on_keyframe`` hook before the mapping
+work, with the pose refresh and re-anchoring after a loop correction,
+1131-1157), ``_local_ba``/``_apply_ba`` (1261-1358: the
 joint point+line BA when the window holds line observations),
 ``flush_pending_ba``, ``poll_pending_ba`` and ``poll_map_jobs``
 (1359-1488).  The line mirror holds ``n_lines`` rows only once the map
-has a valid line, else 8 (624-641).
+has a valid line, else 8 (624-641).  Monocular and RGB-D frames carry no
+line features: the reference extracts lines only in ``process_stereo``
+(218, 239).
 
 Local mapping runs on one of two schedules.  With ``async_mapping``
 (the default, as in the JAX package) a keyframe's triangulation and
@@ -50,13 +57,14 @@ from ..backend.local_ba import bundle_adjust
 from ..backend.pnp import solve_pnp_ransac
 from ..backend.pose_opt import pose_optimize
 from ..config import SlamConfig
-from ..frontend.frame import Frame, build_stereo_frame
+from ..frontend.frame import Frame, build_mono_frame, build_stereo_frame
+from ..frontend.initializer import initialize_two_view
 from ..frontend.line_extractor import LineFeatures, build_line_features
 from ..geometry.host import (
     nbackproject, northonormal_from_pluecker, npluecker_from_endpoints, nse3_apply, nse3_compose,
     nse3_inverse, nse3_relative,
 )
-from ..matching.point_matcher import match_descriptors, rotation_consistency
+from ..matching.point_matcher import match_descriptors, match_in_window, rotation_consistency
 from ..slam_map.fuse import dispatch_fuse, apply_fuse
 from ..slam_map.line_mapping import create_lines_two_view, fuse_lines_into_keyframe
 from ..slam_map.map_store import MapStore
@@ -150,6 +158,8 @@ class Tracker:
         self.on_keyframe = None          # callback(kf_id) after insertion
         self.localization_only = False   # tracking-only mode: no keyframes, no mapping
         self.reloc_candidates_fn = None  # BoW relocalization candidates
+        self.is_mono = False
+        self._init_ref = None            # (frame, host frame, timestamp, frame id): mono init reference
         # Deferred local mapping (the reference's LocalMapping thread):
         # tracking never waits for triangulation, fuse or local BA.
         self.async_mapping = True
@@ -190,6 +200,20 @@ class Tracker:
             with self.timing.stage("line_frontend"):
                 lines = build_line_features(left, right, self.cfg.camera, self.cfg.lines)
         return self._track(frame, lines, timestamp)
+
+    def process_mono(self, img, timestamp: float = 0.0):
+        """Track one monocular image (TrackMonocular); the map is
+        bootstrapped by the two-view initializer (scale-free).  Returns the
+        4x4 Tcw, the identity until initialization succeeds."""
+        self.frame_id += 1
+        self.is_mono = True
+        with self.timing.stage("frontend"):
+            frame = build_mono_frame(self._to_device(img), self.cfg)
+        if self.state == "NOT_INITIALIZED":
+            self._try_mono_initialize(frame, timestamp)
+            self._record(self.frame_id, timestamp, lost=(self.state != "OK"))
+            return self.current_pose()
+        return self._track(frame, None, timestamp)
 
     def flush(self):
         """Join the mapping chains and the deferred local BA (the last
@@ -440,8 +464,63 @@ class Tracker:
         return out
 
     # ------------------------------------------------------------------
+    def _try_mono_initialize(self, frame: Frame, timestamp):
+        fh = frame.numpy()
+        if self._init_ref is None:
+            if int(fh.valid.sum()) >= 100:
+                self._init_ref = (frame, fh, timestamp, self.frame_id)
+            return
+        ref, refh, ref_ts, ref_id = self._init_ref
+        m = match_in_window(ref, frame, radius=100.0, max_dist=50, ratio=0.9)
+        mask, idx = m.mask.cpu().numpy(), m.idx.cpu().numpy()
+        # The minimum support scales with the feature budget (the
+        # reference's 100 assumes 2000+ features); below it the reference
+        # frame slides forward.
+        if mask.sum() < max(70, self.cfg.orb.n_features // 25):
+            self._init_ref = (frame, fh, timestamp, self.frame_id)
+            return
+        p2 = frame.xy[torch.clamp(m.idx, min=0).long()]
+        res = initialize_two_view(ref.xy, p2, m.mask, self.frame_id, self.cfg.camera)
+        success, inl, pts, R2, t2 = (x.cpu().numpy() for x in (res.success, res.inliers, res.points3d, res.R, res.t))
+        if not bool(success):
+            return
+        # Scale: median depth 1 (CreateInitialMapMonocular's inverse median
+        # depth).
+        med = np.median(pts[inl, 2])
+        if med <= 0:
+            return
+        pts = pts / med
+        t2 = t2 / med
+        with self.map.lock:
+            kf0 = self.map.add_keyframe(refh, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), ref_id, ref_ts)
+            kf1 = self.map.add_keyframe(fh, R2, t2, self.frame_id, timestamp, parent=kf0)
+            rows = np.nonzero(inl)[0]
+            ids = self.map.add_points(pts[rows], refh.desc[rows], refh.octave[rows], kf0, rows)
+            self.map.kf_obs_lm[kf1, idx[rows[: len(ids)]]] = ids
+            self.map.touch_obs()
+            self.map.update_point_stats(ids)
+        self.recent_lm.append(ids)
+        self.R, self.t = R2.astype(np.float32), t2.astype(np.float32)
+        self.ref_kf = kf1
+        self.ref_kf_matches = max(len(ids), 40)
+        self.state = "OK"
+        self.last_frame = frame
+        self.last_R = self.R.copy()
+        self.last_t = self.t.copy()
+        self.frames_since_kf = 0
+        self._local_ba(kf1)
+        self.poll_pending_ba()
+        if self.on_keyframe is not None:
+            self.on_keyframe(kf0)
+            self.on_keyframe(kf1)
+        self._ref_frame_dev = frame
+        self._ref_frame_kf = kf1
+        self._carry = None
+        self.mark_map_dirty()
+
     def _stereo_initialize(self, frame: Frame, lines: Optional[LineFeatures], timestamp):
         fh = frame.numpy()
+        self.is_mono = False
         self.R = np.eye(3, dtype=np.float32)
         self.t = np.zeros(3, np.float32)
         kf = self.map.add_keyframe(fh, self.R, self.t, self.frame_id, timestamp)
@@ -564,19 +643,22 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _need_keyframe(self, n_inliers: int, tracked_close: int, untracked_close: int):
-        """Tracking::NeedNewKeyFrame for stereo: (c1a | c1b | c1c) & c2,
-        with "LocalMapping idle" = no mapping chain outstanding: neither
-        an unapplied triangulation/fuse nor a deferred local BA."""
+        """Tracking::NeedNewKeyFrame: (c1a | c1b | c1c) & c2, with
+        "LocalMapping idle" = no mapping chain outstanding: neither an
+        unapplied triangulation/fuse nor a deferred local BA.  A monocular
+        map inserts more eagerly (thRefRatio 0.9 against 0.75) and has no
+        c1c: its landmarks come only from triangulation."""
         cfg = self.cfg.tracking
         if self.localization_only:
             return False
         need_close = tracked_close < 100 and untracked_close > 70
+        ref_ratio = 0.9 if self.is_mono else 0.75
         mapping_idle = self._pending_ba is None and not self._map_jobs
         nref = max(self.ref_kf_matches, 15)
         c1a = self.frames_since_kf >= cfg.max_frames_between_kf
         c1b = self.frames_since_kf >= max(cfg.min_frames_between_kf, 1) and mapping_idle
-        c1c = n_inliers < nref * 0.25 or need_close
-        c2 = (n_inliers < nref * 0.75 or need_close) and n_inliers > 15
+        c1c = (not self.is_mono) and (n_inliers < nref * 0.25 or need_close)
+        c2 = (n_inliers < nref * ref_ratio or need_close) and n_inliers > 15
         return (c1a or c1b or c1c) and c2
 
     def _create_keyframe(self, e: _Entry, n_inliers: int = 0):
@@ -710,7 +792,8 @@ class Tracker:
             e_w = nse3_apply(Rwc, twc, nbackproject(cfg.camera, lf.p1[new_ln], lf.depth1[new_ln]))
             self.recent_ln.append(self.map.add_lines(s_w, e_w, lf.desc[new_ln], kf, new_ln))
         fuse_lines_into_keyframe(self.map, kf, cfg.camera)
-        if len(new_ln) == 0:
+        # Two-view triangulation: a monocular map's only source of lines.
+        if self.is_mono or len(new_ln) == 0:
             nbrs, _ = self.map.covisible_keyframes(kf, min_weight=10, max_n=1)
             if len(nbrs):
                 tri_ln = create_lines_two_view(self.map, kf, int(nbrs[0]), cfg.camera)

@@ -124,6 +124,40 @@ def test_frame_on_card_matches_cpu(cuda):
     assert (np.abs(fc.depth[both][hit] - fg.depth[both][hit]) / fg.depth[both][hit] < 0.01).mean() > 0.95
 
 
+@pytest.mark.parametrize("kind", ["mono", "rgbd"])
+def test_mono_and_rgbd_frames_on_card_match_cpu(cuda, kind):
+    """build_mono_frame / build_rgbd_frame on the card launch one
+    orb_describe (a batch of one) and no patch_tiles, and hold to the CPU
+    plain path under the frame contract."""
+    from orb_line_slam_tpu_torch.config import CameraIntrinsics, LineConfig, OrbConfig, SlamConfig
+    from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene
+    from orb_line_slam_tpu_torch.frontend.frame import build_mono_frame, build_rgbd_frame
+
+    cam = CameraIntrinsics(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989, bf=40.0, width=640, height=480)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=1000, n_levels=8), lines=LineConfig(enabled=False))
+    img, depth = SyntheticScene(cam, n_points=1500, seed=7, extent=((-4, 4), (-3, 3), (1, 8))).render_rgbd(
+        np.eye(3), np.zeros(3))
+    args = (torch.from_numpy(img),) if kind == "mono" else (torch.from_numpy(img), torch.from_numpy(depth))
+    build = build_mono_frame if kind == "mono" else build_rgbd_frame
+    fc = build(*args, cfg).numpy()
+    before = (patches.launches, describe.launches, stereo_sad.launches)
+    fg = build(*(a.to(cuda) for a in args), cfg)
+    assert fg.xy.device.type == "cuda"
+    fg = fg.numpy()
+    assert (patches.launches, describe.launches, stereo_sad.launches) == (before[0], before[1] + 1, before[2])
+    assert (fc.valid == fg.valid).mean() > 0.98
+    both = fc.valid & fg.valid
+    assert np.abs(fc.xy[both] - fg.xy[both]).max() < 0.51
+    assert np.median(np.unpackbits(fc.desc[both] ^ fg.desc[both], axis=1).sum(1)) <= 1
+    dc, dg = fc.depth[both], fg.depth[both]
+    if kind == "mono":
+        assert (dg == -1).all() and (fg.u_right == -1).all()
+    else:
+        hit = (dc > 0) & (dg > 0)
+        assert hit.sum() > 300 and ((dc > 0) == (dg > 0)).mean() > 0.95
+        assert (np.abs(dc[hit] - dg[hit]) / dc[hit] < 0.01).mean() > 0.95
+
+
 def test_line_frontend_on_card_matches_cpu(cuda):
     """build_line_features on the card vs the CPU plain path: the line
     contract of tests/test_tpu_parity.py:213-250."""
