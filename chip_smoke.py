@@ -11,8 +11,10 @@ thread), then bench.py's pipeline and the circuit again on the System's
 default schedule (deferred local mapping, loop detection and global BA
 on worker threads) — through ``System.track_stereo``, and monocular and
 RGB-D tracking at TUM fr1's size through ``System.track_monocular`` and
-``System.track_rgbd``, after building the hand-written CUDA kernels from
-the sources in this checkout and holding each to its plain PyTorch
+``System.track_rgbd``, and B stereo sequences at once through
+``MultiSequenceTracker.process_stereo`` (one batched step per time step,
+each sequence a System), after building the hand-written CUDA kernels
+from the sources in this checkout and holding each to its plain PyTorch
 version.  Run from the root of a checkout:
 
     python3 chip_smoke.py
@@ -24,8 +26,10 @@ Phases (each fails loudly, and the script exits non-zero):
   3. kernels vs plain, at each of the three stereo cells' atlas shapes
      and feature budgets (8, 8 and 4 pyramid levels), and for
      orb_describe also at the TUM cell's batch of one ([1, 2210, 640],
-     N = 1000, the mono and RGB-D frames' shape), with border and
-     clamped keypoints among the inputs: patch tiles, exact equality;
+     N = 1000, the mono and RGB-D frames' shape) and at a batched
+     multi-sequence step's shapes (orb_describe over [8, 1731, 1241],
+     N = 8 x 2000; stereo_sad over 4 pairs, N = 4 x 2000, one launch),
+     with border and clamped keypoints among the inputs: patch tiles, exact equality;
      orb_describe, angles within 1e-4 rad on >= 99.5% of keypoints,
      >= 99% of descriptors bit-identical, median 0 bits, none above 8;
      stereo_sad, within 1e-5 relative + 1e-2 and the same best slide on
@@ -102,7 +106,22 @@ Phases (each fails loudly, and the script exits non-zero):
  13. the RGB-D slice: 60 TUM-size frames of a room through
      System.track_rgbd, state OK, >= 3 keyframes, >= 1 local BA, one
      orb_describe per frame and nothing else, ATE no more than 10% + 1 cm
-     above the JAX package's.
+     above the JAX package's;
+ 14. batched multi-sequence SLAM (BASELINE config #4), each sequence a
+     System on its defaults (bench_pipeline_config: lines and loop
+     closing on): (a) B = 2, phase 5's 60 frames and the same frames in
+     reverse order; on three steady batched steps each sequence's
+     TrackOut is held to an unbatched track_step on the same tensors
+     (1e-4 rad, 1e-4 m, assoc_gid on >= 99% of rows); >= half the steps
+     batched; each ATE within max(1.25 x, + 2 cm) of phase 11 (a)'s;
+     (b) B = 1, 4, 8, sequence b starting at frame 3b, 18 steps each
+     (B = 2 is (a)'s run): multiseq_aggregate_fps (median and spread of
+     three windows of the batched steps), host ms per batched step, the
+     speedup against B = 1, and the kernels and device ms of one steady
+     batched step profiled alone at B = 1 and 4.  In both, every batched step launches
+     exactly one orb_describe and one stereo_sad (a per-sequence step one
+     of each per sequence), and a per-sample fallback of torch.func.vmap
+     fails the run.
 Phases 5, 7, 8, 10, 12 and 13 pin the schedule the JAX references were
 computed on (System(..., async_loop=False), gba_async = False,
 tracker.async_mapping = False).  Every slice run prints the tracking thread's per-frame host ms (p50,
@@ -116,7 +135,7 @@ torch.profiler now and then returns a window with device records
 missing; such a window is taken again (a bounded number of times, then
 the run fails), and a line near the end says how many were.  The line
 before the last lists the three kernels, with their launches over
-phases 4, 5, 7, 10, 11, 12 and 13; the last line is the JSON device
+phases 4, 5, 7, 10, 11, 12, 13 and 14; the last line is the JSON device
 record.
 Imports nothing of JAX.
 """
@@ -129,6 +148,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from typing import NamedTuple
 
 import numpy as np
@@ -195,6 +215,14 @@ H100_FP32_FLOPS = 67e12
 
 N_FRAMES = 60
 WARMUP_FRAMES = 10
+# Phase 14: pairs of the batched kernel rows of phase 3; the batch sizes of
+# the scaling run, its steps per sequence (bootstrap included) and the
+# stagger of sequence b's first frame (b * MULTISEQ_STAGGER), so that the
+# sequences' keyframe events do not coincide (tools/bench_multiseq.py:65-72).
+MULTISEQ_KERNEL_PAIRS = 4
+MULTISEQ_BATCHES = (1, 4, 8)      # B = 2 is phase 14 (a)'s run
+MULTISEQ_FRAMES = 18
+MULTISEQ_STAGGER = 3
 
 
 def fail(msg: str):
@@ -543,28 +571,30 @@ def phase_fused_kernels(cells, mono_cells=()):
                           "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                           "library_ms": None, "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
 
-    for name, cfg in cells:
-        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
-        atlas, axy, delta = inputs(2, h, w, n)
-        describe_record(name, atlas, axy, delta)
-        x0 = torch.clamp(axy[..., 0] - 15, 0, w - 32).long()
-        y0 = torch.clamp(axy[..., 1] - 15, 0, h - 32).long()
-
-        # --- stereo_sad: whole-number centres as stereo_match gives them
-        # (a right column up to 100 px left of the keypoint, the same
-        # row), then fractional ones for the blend.
-        axy_l = axy[0]
-        cx = torch.floor(axy_l[:, 0].float() - torch.from_numpy(rng.uniform(0, 100, n).astype(np.float32)).to(dev))
-        cy = axy_l[:, 1].float().clone()
-        frac = torch.from_numpy(rng.uniform(0, 1, (2, n)).astype(np.float32)).to(dev)
+    def sad_record(name, atlas_l, axy_l, atlas_r):
+        """stereo_sad on one pair ([h, w] atlases, [n, 2] keypoints) or on
+        a batch of pairs ([b, h, w], [b, n, 2]), whose one launch own_device_ms
+        checks."""
+        h, w = atlas_l.shape[-2:]
+        n = axy_l.shape[-2]
+        lead = tuple(axy_l.shape[:-2])
+        b = int(np.prod(lead)) if lead else 1
+        # Whole-number centres as stereo_match gives them (a right column up
+        # to 100 px left of the keypoint, the same row), then fractional
+        # ones for the blend.
+        cx = torch.floor(axy_l[..., 0].float() - torch.from_numpy(
+            rng.uniform(0, 100, (*lead, n)).astype(np.float32)).to(dev))
+        cy = axy_l[..., 1].float().clone()
+        frac = torch.from_numpy(rng.uniform(0, 1, (2, *lead, n)).astype(np.float32)).to(dev)
         worst = 0.0
         for tag, (ccx, ccy) in (("whole", (cx, cy)), ("fractional", (cx + frac[0], cy + frac[1]))):
-            sad = stereo_sad.stereo_sad(atlas[0], axy_l, atlas[1], ccx.contiguous(), ccy.contiguous())
-            sad_p = stereo_sad.stereo_sad_reference(atlas[0], axy_l, atlas[1], ccx, ccy)
+            sad = stereo_sad.stereo_sad(atlas_l, axy_l, atlas_r, ccx.contiguous(), ccy.contiguous())
+            sad_p = stereo_sad.stereo_sad_reference(atlas_l, axy_l, atlas_r, ccx, ccy)
             torch.cuda.synchronize()
-            check(sad.shape == (n, 11) and bool(torch.isfinite(sad).all()), "stereo_sad: wrong shape or non-finite")
+            check(sad.shape == (*lead, n, 11) and bool(torch.isfinite(sad).all()),
+                  "stereo_sad: wrong shape or non-finite")
             err = (sad - sad_p).abs()
-            arg_ok = float((sad.argmin(1) == sad_p.argmin(1)).float().mean())
+            arg_ok = float((sad.argmin(-1) == sad_p.argmin(-1)).float().mean())
             check(bool((err <= 1e-5 * sad_p + 1e-2).all()) and arg_ok >= 0.999,
                   f"stereo_sad at {name} ({tag} centres) disagrees with the plain version: max abs err "
                   f"{float(err.max()):.3e}, same best slide {arg_ok:.4f}")
@@ -573,29 +603,41 @@ def phase_fused_kernels(cells, mono_cells=()):
                   f"{float(sad_p.max()):.0f}, same best slide {arg_ok:.4f}, "
                   f"{'EXACTLY equal' if torch.equal(sad, sad_p) else 'not exactly equal'}")
         ms, ms2, plain_ms, plain_ms2 = interleaved_times(
-            lambda: stereo_sad.stereo_sad(atlas[0], axy_l, atlas[1], cx, cy),
-            lambda: stereo_sad.stereo_sad_reference(atlas[0], axy_l, atlas[1], cx, cy))
-        own = own_device_ms(lambda: stereo_sad.stereo_sad(atlas[0], axy_l, atlas[1], cx, cy), "stereo_sad_kernel",
+            lambda: stereo_sad.stereo_sad(atlas_l, axy_l, atlas_r, cx, cy),
+            lambda: stereo_sad.stereo_sad_reference(atlas_l, axy_l, atlas_r, cx, cy))
+        own = own_device_ms(lambda: stereo_sad.stereo_sad(atlas_l, axy_l, atlas_r, cx, cy), "stereo_sad_kernel",
                             stereo_sad)
-        plain_own, plain_k = device_ms(lambda: stereo_sad.stereo_sad_reference(atlas[0], axy_l, atlas[1], cx, cy))
+        plain_own, plain_k = device_ms(lambda: stereo_sad.stereo_sad_reference(atlas_l, axy_l, atlas_r, cx, cy))
         # Needed pixels: the 11x11 left windows, and with whole-number
         # centres (all four blend weights but the first are 0) the 11x21
-        # right windows.
-        xr = torch.clamp(cx.long() - 15, 0, w - 32) + 5
-        yr = torch.clamp(cy.long() - 15, 0, h - 32) + 10
-        n_pix = covered_pixels(h, w, x0[0] + 10, y0[0] + 10, 11, 11) + covered_pixels(h, w, xr, yr, 11, 21)
-        n_bytes = n_pix * 4 + n * (8 + 4 + 4) + n * 44
+        # right windows, counted per pair.
+        kl, kx, ky = axy_l.reshape(b, n, 2), cx.reshape(b, n), cy.reshape(b, n)
+        n_pix = 0
+        for i in range(b):
+            x0 = torch.clamp(kl[i, :, 0] - 15, 0, w - 32).long()
+            y0 = torch.clamp(kl[i, :, 1] - 15, 0, h - 32).long()
+            xr = torch.clamp(kx[i].long() - 15, 0, w - 32) + 5
+            yr = torch.clamp(ky[i].long() - 15, 0, h - 32) + 10
+            n_pix += covered_pixels(h, w, x0 + 10, y0 + 10, 11, 11) + covered_pixels(h, w, xr, yr, 11, 21)
+        n_bytes = n_pix * 4 + b * n * (8 + 4 + 4) + b * n * 44
         bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
-        ops_ms = n * sad_flop / H100_FP32_FLOPS * 1e3
-        print(f"stereo_sad ({name}: atlas [{h}x{w}], N={n}): kernel {ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, plain "
+        ops_ms = b * n * sad_flop / H100_FP32_FLOPS * 1e3
+        shape = f"{name}: atlas [{h}x{w}], N={n}" if not lead else f"{name}: atlases 2 x [{b}x{h}x{w}], N={b}x{n}"
+        print(f"stereo_sad ({shape}): kernel {ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, plain "
               f"{plain_ms * 1e3:.1f}/{plain_ms2 * 1e3:.1f} us per call (CUDA events; plain, kernel, kernel, plain); own "
               f"device time {own * 1e3:.2f} us in 1 kernel (plain: {plain_own * 1e3:.1f} us in {plain_k} kernels); "
               f"bound {max(bytes_ms, ops_ms) * 1e3:.2f} us: {n_bytes} bytes ({n_pix} atlas pixels under a window) = "
-              f"{bytes_ms * 1e3:.2f} us, {n * sad_flop} float32 operations = {ops_ms * 1e3:.2f} us")
-        s_records.append({"shape": f"{name}: atlas [{h}x{w}], N={n}", "max_abs_err": worst,
+              f"{bytes_ms * 1e3:.2f} us, {b * n * sad_flop} float32 operations = {ops_ms * 1e3:.2f} us")
+        s_records.append({"shape": shape, "max_abs_err": worst,
                           "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
                           "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                           "library_ms": None, "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
+
+    for name, cfg in cells:
+        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
+        atlas, axy, delta = inputs(2, h, w, n)
+        describe_record(name, atlas, axy, delta)
+        sad_record(name, atlas[0], axy[0], atlas[1])
 
         if name == cells[0][0]:
             # What a wrapper costs on the host when it launches nothing
@@ -618,6 +660,15 @@ def phase_fused_kernels(cells, mono_cells=()):
     for name, cfg in mono_cells:
         (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
         describe_record(name, *inputs(1, h, w, n))
+
+    # A batched multi-sequence frame (phase 14) of B pairs at the first
+    # cell's shape: one orb_describe over the 2B images (lefts first) and
+    # one stereo_sad over the B pairs.
+    name, cfg = cells[0]
+    (h, w), n, b = cell_atlas_shape(cfg), cfg.orb.n_features, MULTISEQ_KERNEL_PAIRS
+    atlas, axy, delta = inputs(2 * b, h, w, n)
+    describe_record(f"{name}, {b} pairs", atlas, axy, delta)
+    sad_record(f"{name}, {b} pairs", atlas[:b], axy[:b], atlas[b:])
 
     def summary(records):
         return {**records[0], "max_abs_err": max(r["max_abs_err"] for r in records), "by_shape": records}
@@ -1665,6 +1716,201 @@ def phase_rgbd_slice(cfg, poses, frames):
 
 
 PROFILE_START, PROFILE_FRAMES = 33, 3
+def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
+    """Drive MultiSequenceTracker(cfg, B) on the System's defaults on the
+    card over B sequences of equal length (seqs: B lists of (left, right)
+    pairs), one process_stereo per time step, with every kernel's count
+    set to 0 just before each step and read just after: a batched step
+    must launch exactly one orb_describe and one stereo_sad, a
+    per-sequence step (bootstrap, or line mirrors of different
+    capacities) one of each per sequence.  On the batched steps numbered
+    in `check_steps` (from 0) each sequence's batched TrackOut is held to
+    an unbatched track_step on the same tensors: poses within 1e-4 rad and
+    1e-4 m, assoc_gid equal on >= 99% of rows.  The inputs of batched step
+    `keep_step` are kept, so that it can be profiled alone afterwards.
+    Returns (tracker, launches, per-step host ms, per-step batched flags,
+    kept inputs or None)."""
+    import torch
+
+    from orb_line_slam_tpu_torch.parallel import multi_sequence
+    from orb_line_slam_tpu_torch.parallel.multi_sequence import MultiSequenceTracker, _take
+    from orb_line_slam_tpu_torch.pipeline.track_step import track_step
+
+    n_seq = len(seqs)
+    batched_fn = multi_sequence.batched_frame_track
+    state = {"step": 0, "kept": None, "checked": 0}
+
+    def recorded(left, right, stacked, cfg_, has_lines):
+        frames, lfs, outs = batched_fn(left, right, stacked, cfg_, has_lines)
+        step = state["step"]
+        state["step"] += 1
+        if step == keep_step:
+            state["kept"] = (left, right, stacked, has_lines)
+        if step in check_steps:
+            last_frame, mir, *rest = stacked
+            carry, table = rest[:15], rest[15:]
+            for b in range(n_seq):
+                want = track_step(_take(frames, b), _take(last_frame, b), _take(mir, b), *(x[b] for x in carry),
+                                  _take(lfs, b) if has_lines else None, *(x[b] for x in table),
+                                  cfg=cfg_, has_lines=has_lines)
+                got = _take(outs, b)
+                d_rot = float(_rot_angle(got.R.cpu().numpy(), want.R.cpu().numpy()))
+                d_t = float((got.t - want.t).abs().max())
+                same = float((got.assoc_gid == want.assoc_gid).float().mean())
+                print(f"{name}: batched step {step}, sequence {b}: batched vs unbatched track_step on the same "
+                      f"tensors: rotation {d_rot:.2e} rad, translation {d_t:.2e} m, assoc_gid equal on {same:.4f} "
+                      f"of rows, inliers {int(got.n_inliers)} / {int(want.n_inliers)}, has_lines {has_lines}")
+                check(d_rot <= 1e-4 and d_t <= 1e-4 and same >= 0.99,
+                      f"{name}: sequence {b}'s batched step {step} disagrees with the unbatched track_step")
+            state["checked"] += 1
+        return frames, lfs, outs
+
+    mst = MultiSequenceTracker(cfg, n_seq, device="cuda")
+    check(mst.systems is not None and all(s.async_loop and s.gba_async and s.tracker.async_mapping
+                                          for s in mst.systems), f"{name}: not the System's default schedule")
+    stream = torch.cuda.current_stream()
+    launches, frame_ms, batched = {}, [], []
+    multi_sequence.batched_frame_track = recorded
+    # functorch warns when an operator has no batching rule and it loops
+    # over the batch instead (B times the launches): any such warning fails.
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for i in range(len(seqs[0])):
+                ready = mst._ready()
+                reset_launches()
+                t0 = time.perf_counter()
+                mst.process_stereo([s[i][0] for s in seqs], [s[i][1] for s in seqs], [0.1 * i] * n_seq)
+                stream.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                n = read_launches()
+                was_batched = mst.n_batched_frames == sum(batched) + 1
+                batched.append(was_batched)
+                per = 1 if was_batched else n_seq
+                check(n == {"patch_tiles": 0, "orb_describe": per, "stereo_sad": per},
+                      f"{name}: step {i} ({'batched' if was_batched else 'per sequence'}, ready {ready}) "
+                      f"launched {n}")
+                add_launches(launches, n)
+            mst.shutdown()
+    finally:
+        multi_sequence.batched_frame_track = batched_fn
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    torch.cuda.synchronize()
+    fallbacks = sorted({str(w.message)[:160] for w in seen if "batching rule" in str(w.message)})
+    check(not fallbacks, f"{name}: torch.func.vmap fell back to a per-sample loop: {fallbacks}")
+    check(state["checked"] == len(check_steps), f"{name}: only {state['checked']} of the batched steps "
+          f"{list(check_steps)} ran ({mst.n_batched_frames} batched)")
+    print(f"{name}: {len(frame_ms)} steps of {n_seq} sequences, {mst.n_batched_frames} batched, "
+          f"{mst.n_bootstrap_frames} per sequence while bootstrapping, {mst.n_mixed_line_frames} per sequence for "
+          f"line mirrors of different capacities; kernel launches {json.dumps(launches)}; "
+          f"{mst.n_loops_closed} loops; stages " + json.dumps(mst.timing.table(len(frame_ms))))
+    return mst, launches, frame_ms, batched, state["kept"]
+
+
+def aggregate_fps(n_seq, frame_ms, batched):
+    """multiseq_aggregate_fps of a run: B x batched steps / their seconds
+    in each of three consecutive windows of the batched steps, and the host
+    ms per batched step.  Returns (median window, the three sorted, {p50,
+    p90, max})."""
+    steps = np.asarray([ms for ms, was in zip(frame_ms, batched) if was])
+    check(len(steps) >= 6, f"only {len(steps)} batched steps")
+    fps = sorted(n_seq * len(w) / (w.sum() / 1e3) for w in np.array_split(steps, 3))
+    host = {"p50": float(np.percentile(steps, 50)), "p90": float(np.percentile(steps, 90)), "max": float(steps.max())}
+    return fps[1], fps, host
+
+
+def print_aggregate(name, n_seq, frame_ms, batched):
+    agg, fps, host = aggregate_fps(n_seq, frame_ms, batched)
+    print(f"{name}: multiseq_aggregate_fps {agg:.3f} (windows {', '.join(f'{f:.3f}' for f in fps)}) over "
+          f"{sum(batched)} batched steps; host ms per batched step p50 {host['p50']:.1f}, p90 {host['p90']:.1f}, "
+          f"max {host['max']:.1f}")
+    return {"multiseq_aggregate_fps": agg, "windows_fps": fps, "batched_steps": int(sum(batched)),
+            "batched_step_host_ms": host}
+
+
+def sequence_ate(tracker, poses):
+    from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
+
+    traj = tracker.final_trajectory()
+    est = np.stack([-R.T @ t for (_, _, R, t, _) in traj])
+    gt = np.stack([-R.T @ t for (R, t) in poses])
+    check(np.isfinite(est).all() and est.shape == gt.shape, f"trajectory not finite / wrong shape {est.shape}")
+    return float(ate_rmse(est, gt, align=True))
+
+
+def phase_multiseq_correctness(poses, frames, pipeline_ate):
+    """Phase 14 (a): MultiSequenceTracker(bench_pipeline_config(), 2) on
+    the System's defaults: sequence 0 is phase 5's frames, sequence 1 the
+    same frames in reverse order.  Three steady batched steps are held to
+    the unbatched track_step; at least half the steps run batched; each
+    sequence's ATE is within max(1.25 x, + 2 cm) of phase 11 (a)'s
+    (tests/test_loop_closure_e2e.py's inequality).  Its steps are also
+    the scaling run's B = 2 point."""
+    seqs = [frames, frames[::-1]]
+    gts = [poses, poses[::-1]]
+    mst, launches, frame_ms, batched, _ = run_multiseq(bench_pipeline_config(), seqs, "multi-sequence B=2",
+                                                       check_steps=(10, 25, 40))
+    n_batched = sum(batched)
+    check(n_batched >= len(frames) // 2, f"multi-sequence B=2: only {n_batched} of {len(frames)} steps batched")
+    bound = max(1.25 * pipeline_ate, pipeline_ate + 0.02)
+    ates = []
+    for b, (t, gt) in enumerate(zip(mst.trackers, gts)):
+        ate = sequence_ate(t, gt)
+        ates.append(ate)
+        print(f"multi-sequence B=2, sequence {b} ({'forward' if b == 0 else 'reversed'}): state {t.state}, "
+              f"{int(t.map.n_keyframes())} keyframes, {t.n_local_ba} local BAs, map lines "
+              f"{int(t.map.ln_valid.sum())}, ATE {ate:.5f} m (bound {bound:.5f} m from phase 11 (a)'s "
+              f"{pipeline_ate:.5f} m)")
+        check(t.state == "OK", f"multi-sequence B=2, sequence {b}: final state {t.state}")
+        check(ate <= bound, f"multi-sequence B=2, sequence {b}: ATE {ate:.5f} m above {bound:.5f} m")
+    host_probe("after multi-sequence B=2")
+    return launches, ates, print_aggregate("multi-sequence B=2", 2, frame_ms, batched)
+
+
+def phase_multiseq_scaling(frames, rows):
+    """Phase 14 (b): B = 1, 4, 8 sequences on the System's defaults (rows
+    holds phase 14 (a)'s B = 2 row),
+    sequence b starting at phase 5's frame b * MULTISEQ_STAGGER,
+    MULTISEQ_FRAMES steps each (bootstrap included).
+    multiseq_aggregate_fps = B x batched steps / their seconds, the median
+    and spread of three consecutive windows of the batched steps; the host
+    ms per batched step; the speedup against B = 1; the device kernels and
+    ms of one steady batched step (front end, line front end and the
+    vmapped track step) profiled alone at B = 1 and at B = 4."""
+    import torch
+
+    from orb_line_slam_tpu_torch.parallel.multi_sequence import batched_frame_track
+
+    cfg = bench_pipeline_config()
+    out, launches, kept = dict(rows), {}, {}
+    for n_seq in MULTISEQ_BATCHES:
+        check(MULTISEQ_STAGGER * (n_seq - 1) + MULTISEQ_FRAMES <= len(frames), "phase 14 (b): too few frames")
+        seqs = [frames[MULTISEQ_STAGGER * b: MULTISEQ_STAGGER * b + MULTISEQ_FRAMES] for b in range(n_seq)]
+        name = f"multi-sequence scaling B={n_seq}"
+        mst, n, frame_ms, batched, kept[n_seq] = run_multiseq(cfg, seqs, name, keep_step=8)
+        add_launches(launches, n)
+        host_probe(f"after {name}")
+        out[n_seq] = print_aggregate(name, n_seq, frame_ms, batched)
+        states = [t.state for t in mst.trackers]
+        check(all(s == "OK" for s in states), f"{name}: a sequence is not OK: {states}")
+    out = dict(sorted(out.items()))
+    for n_seq, row in out.items():
+        row["speedup_vs_1"] = row["multiseq_aggregate_fps"] / out[1]["multiseq_aggregate_fps"]
+    for n_seq in (1, MULTISEQ_KERNEL_PAIRS):
+        check(kept.get(n_seq) is not None, f"phase 14 (b): no steady batched step kept at B={n_seq}")
+        left, right, stacked, has_lines = kept[n_seq]
+        kern = device_kernels(lambda: batched_frame_track(left, right, stacked, cfg, has_lines))
+        busy = sum(e.end - e.start for e in kern) / 1e3
+        out[n_seq]["step_kernels"] = len(kern)
+        out[n_seq]["step_device_ms"] = busy
+        print(f"one steady batched step at B={n_seq} (front end, line front end, vmapped track step; has_lines "
+              f"{has_lines}) profiled alone: {len(kern)} device kernels, {busy:.2f} ms device busy")
+        torch.cuda.synchronize()
+    print("multi-sequence scaling: " + json.dumps(out))
+    return launches, out
+
+
 # (module, function, range name): the stages a profile range is opened
 # around.  Nested ranges (the line pose terms inside the tracking step,
 # the segment sums inside the joint BA) count inside their parents too.
@@ -1848,13 +2094,20 @@ def main():
         phase_rgbd_slice(tcfg, rposes, rframes)
     add_launches(launches, n)
     done("phases 12-13")
+    n, metrics["multiseq_ate_m"], row2 = phase_multiseq_correctness(poses, frames, metrics["ate_rmse_pipeline_m"])
+    add_launches(launches, n)
+    n, scaling = phase_multiseq_scaling(frames, {2: row2})
+    add_launches(launches, n)
+    metrics["multiseq_aggregate_fps"] = {b: row["multiseq_aggregate_fps"] for b, row in scaling.items()}
+    metrics["multiseq_batched_step_host_ms"] = {b: row["batched_step_host_ms"] for b, row in scaling.items()}
+    done("phase 14")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
     # launches: orb_describe and stereo_sad over the slices' stereo frames
-    # (phases 5, 7, 10 and 11), orb_describe over the mono and RGB-D frames
-    # (phases 12 and 13), patch_tiles over the single-image path with tiles
-    # (phase 4), each read just after its path with the counts set to 0
-    # just before it.
+    # (phases 5, 7, 10 and 11) and the multi-sequence steps (phase 14),
+    # orb_describe over the mono and RGB-D frames (phases 12 and 13),
+    # patch_tiles over the single-image path with tiles (phase 4), each
+    # read just after its path with the counts set to 0 just before it.
     check(all(launches.get(name, 0) > 0 for name in KERNELS), f"a kernel was never launched on its path: {launches}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",

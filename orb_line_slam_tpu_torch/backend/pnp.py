@@ -38,8 +38,8 @@ def horn_alignment(p1: torch.Tensor, p2: torch.Tensor, fix_scale: bool):
     M = x1.transpose(-1, -2) @ x2
     U, _, Vt = torch.linalg.svd(M)
     det = torch.linalg.det(U @ Vt)
-    S = torch.eye(3, dtype=M.dtype, device=M.device).expand(M.shape).clone()
-    S[..., 2, 2] = det
+    # diag(1, 1, det) built out of place, so that torch.func.vmap can batch it.
+    S = torch.diag_embed(torch.stack([torch.ones_like(det), torch.ones_like(det), det], dim=-1))
     R = U @ S @ Vt
     if fix_scale:
         s = torch.ones(M.shape[:-2], dtype=M.dtype, device=M.device)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from ..geometry.sim3 import sim3_compose, sim3_exp, sim3_inverse, sim3_log
+from ..utils.worker import FORWARD_AD_LOCK
 from .local_ba import _segment_sum
 
 
@@ -46,7 +47,8 @@ def edge_residuals_and_jacobians(s, R, t, edge_i, edge_j, edge_s, edge_R, edge_t
         return _edge_residual(*a, *b, edge_s, edge_R, edge_t)
 
     d0 = torch.zeros(14, dtype=R.dtype, device=R.device)
-    J = torch.func.jacfwd(f)(d0)                                     # [E, 7, 14]
+    with FORWARD_AD_LOCK:
+        J = torch.func.jacfwd(f)(d0)                                 # [E, 7, 14]
     return f(d0), J[..., :7], J[..., 7:]
 
 

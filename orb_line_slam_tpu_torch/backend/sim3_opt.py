@@ -26,6 +26,7 @@ import torch
 from ..config import CameraIntrinsics
 from ..geometry.camera import project
 from ..geometry.sim3 import sim3_inverse, sim3_retract
+from ..utils.worker import FORWARD_AD_LOCK
 
 
 class Sim3OptResult(NamedTuple):
@@ -55,7 +56,9 @@ def sim3_residual_jacobian(s, R, t, pts1, pts2, obs1, obs2, cam1, cam2):
         return torch.cat([e1, e2], dim=0)
 
     xi0 = torch.zeros(7, dtype=pts1.dtype, device=pts1.device)
-    return resid_flat(xi0), torch.func.jacfwd(resid_flat)(xi0)
+    with FORWARD_AD_LOCK:
+        J = torch.func.jacfwd(resid_flat)(xi0)
+    return resid_flat(xi0), J
 
 
 def optimize_sim3(

@@ -1,9 +1,12 @@
 """Carry configuration, frames and map state from the JAX package.
 
 The system has no weights: its state is configuration, frames, line
-features and the map.  These pure functions take numpy input (or a JAX-package config,
-read by attribute, so nothing here imports jax) and build the port's
-objects, so that tests can start both packages from identical state.
+features, the tracking step's outputs and the map; a Frame, LineFeatures
+or TrackOut may carry a leading batch axis (the JAX package's batched
+multi-sequence pytrees).  These pure functions take numpy input (or a
+JAX-package config, read by attribute, so nothing here imports jax) and
+build the port's objects, so that tests can start both packages from
+identical state.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from .config import (
 from .frontend.frame import Frame
 from .frontend.line_extractor import LineFeatures
 from .loop.vocabulary import Vocabulary
+from .pipeline.track_step import TrackOut
 from .slam_map.map_store import MapStore
 
 
@@ -66,6 +70,25 @@ def line_features_from_numpy(d, device) -> LineFeatures:
     the JAX LineFeatures' layout and dtypes (e.g. ``jax.device_get`` of
     one)."""
     return _tuple_from_numpy(LineFeatures, d, device)
+
+
+def track_out_from_numpy(d, device) -> TrackOut:
+    """TrackOut on `device` from a dict or object of numpy arrays in the
+    JAX TrackOut's layout (``jax.device_get`` of one, or of a batch of B
+    with a leading [B] on every leaf).  The JAX step returns its scalars
+    in ``packed`` (R, t, ok, n_inliers, used_motion, stage1_ok, n_stage1,
+    tracked_close, untracked_close); it has no line-inlier count, so
+    ``n_line_inliers`` reads -1."""
+    get = (lambda k: d[k]) if isinstance(d, dict) else (lambda k: getattr(d, k))
+    packed = np.asarray(get("packed"), np.float32)
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+    i32 = lambda j: t(np.rint(packed[..., j]).astype(np.int32))  # noqa: E731
+    flag = lambda j: t(packed[..., j] > 0.5)  # noqa: E731
+    direct = {k: t(get(k)) for k in ("R", "t", "Rv", "tv", "ok", "assoc_gid", "inliers", "found_acc", "vis_acc",
+                                     "ln_found_acc", "ln_vis_acc", "ln_match_idx", "ln_match_mask")}
+    return TrackOut(**direct, n_inliers=i32(13), used_motion=flag(14), stage1_ok=flag(15), n_stage1=i32(16),
+                    tracked_close=i32(17), untracked_close=i32(18),
+                    n_line_inliers=t(np.full(packed.shape[:-1], -1, np.int32)))
 
 
 def map_store_from_numpy(store) -> MapStore:

@@ -1,7 +1,9 @@
 // Fused stereo SAD for Hopper (sm_90a): the 11x11 centre-normalised sum
 // of absolute differences between a left keypoint's patch and eleven
 // windows of the right image (slide -5..+5 px), one warp per keypoint,
-// both patches cut straight from the pyramid atlases.
+// both patches cut straight from the pyramid atlases.  One launch covers
+// a batch of stereo pairs: keypoint k of b * n belongs to pair k / n and
+// reads that pair's two atlases.
 //
 // Replaces, together with orb_describe.cu, the TPU kernel
 // orb_line_slam_tpu/ops/pallas_patches.py::extract_patch_tiles (body
@@ -53,22 +55,25 @@ __global__ void stereo_sad_kernel(const float* __restrict__ atlas_l,
                                   const float* __restrict__ atlas_r,
                                   const float* __restrict__ cx,
                                   const float* __restrict__ cy, int h, int w, int n,
-                                  float* __restrict__ sad) {
+                                  int total, float* __restrict__ sad) {
   __shared__ float s_left[kWarps][kLeft];
   __shared__ float s_strip[kWarps][kStrip];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int k = blockIdx.x * kWarps + warp;
-  if (k >= n) return;
+  if (k >= total) return;
   float* left = s_left[warp];
   float* strip = s_strip[warp];
+  const long long pair = static_cast<long long>(k / n) * h * w;
+  const float* atlas_lb = atlas_l + pair;
+  const float* atlas_rb = atlas_r + pair;
 
   // Left patch: tile rows/columns 10..20, minus the centre (tile (15, 15)).
   {
     const int x0 = min(max(xy_l[2 * k] - kHalfPatch, 0), w - kTile) + kHalfPatch - kSadW;
     const int y0 = min(max(xy_l[2 * k + 1] - kHalfPatch, 0), h - kTile) + kHalfPatch - kSadW;
-    const float* p = atlas_l + static_cast<long long>(y0) * w + x0;
+    const float* p = atlas_lb + static_cast<long long>(y0) * w + x0;
     const float centre = p[static_cast<long long>(kSadW) * w + kSadW];
     for (int e = lane; e < kLeft; e += 32) {
       const int r = e / kWin, c = e - r * kWin;
@@ -86,7 +91,7 @@ __global__ void stereo_sad_kernel(const float* __restrict__ atlas_l,
     const float w10 = __fmul_rn(fy, gx), w11 = __fmul_rn(fy, fx);
     const int x0 = min(max(static_cast<int>(xi) - kHalfPatch, 0), w - kTile) + kHalfPatch - kSadW - kSlide;
     const int y0 = min(max(static_cast<int>(yi) - kHalfPatch, 0), h - kTile) + kHalfPatch - kSadW;
-    const float* p = atlas_r + static_cast<long long>(y0) * w + x0;
+    const float* p = atlas_rb + static_cast<long long>(y0) * w + x0;
     for (int e = lane; e < kStrip; e += 32) {
       const int r = e / kStripW, c = e - r * kStripW;
       const float* q = p + static_cast<long long>(r) * w + c;
@@ -128,17 +133,17 @@ __global__ void stereo_sad_kernel(const float* __restrict__ atlas_l,
 
 }  // namespace
 
-// atlas_l, atlas_r: float32 [h, w] contiguous; xy_l: int32 [n, 2] (x, y)
-// left atlas keypoints; cx, cy: float32 [n] right centres (atlas
-// coordinates); sad: float32 [n, 11].  Launches on `stream`; returns
-// cudaGetLastError().
+// atlas_l, atlas_r: float32 [b, h, w] contiguous; xy_l: int32 [b, n, 2]
+// (x, y) left atlas keypoints; cx, cy: float32 [b, n] right centres (atlas
+// coordinates); sad: float32 [b, n, 11]; total = b * n.  Launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int stereo_sad_launch(const float* atlas_l, const int* xy_l,
                                  const float* atlas_r, const float* cx,
-                                 const float* cy, int h, int w, int n, float* sad,
-                                 void* stream) {
-  if (n > 0) {
-    stereo_sad_kernel<<<(n + kWarps - 1) / kWarps, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
-        atlas_l, xy_l, atlas_r, cx, cy, h, w, n, sad);
+                                 const float* cy, int h, int w, int n, int total,
+                                 float* sad, void* stream) {
+  if (total > 0) {
+    stereo_sad_kernel<<<(total + kWarps - 1) / kWarps, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
+        atlas_l, xy_l, atlas_r, cx, cy, h, w, n, total, sad);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,8 @@
 
 Port of ``orb_line_slam_tpu/frontend/frame.py`` — ``Frame`` and
 ``build_stereo_frame`` (27-74): dual ORB extraction, stereo matching with
-SAD sub-pixel depth, keypoint undistortion; ``build_rgbd_frame`` and
+SAD sub-pixel depth, keypoint undistortion, for one pair or, as
+``build_stereo_frames``, for B pairs at once; ``build_rgbd_frame`` and
 ``build_mono_frame`` (77-116): single-image extraction
 (``extract_orb``, one fused describe launch) with depths read from a
 registered depth map, or none.  Everything stays on the device of the
@@ -43,7 +44,8 @@ class Frame(NamedTuple):
 
 
 def build_stereo_frame(img_left: torch.Tensor, img_right: torch.Tensor, cfg: SlamConfig) -> Frame:
-    """Features and stereo depths of a rectified [H, W] pair (uint8 or float32)."""
+    """Features and stereo depths of a rectified [H, W] pair (uint8 or
+    float32), or of B pairs [B, H, W] with a leading [B] on every leaf."""
     featL, atlasL, axyL, deltaL, featR, atlasR, offsR = extract_orb_stereo(img_left, img_right, cfg.orb)
     sm = stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offsR, cfg.camera, cfg.orb)
     return Frame(
@@ -56,6 +58,19 @@ def build_stereo_frame(img_left: torch.Tensor, img_right: torch.Tensor, cfg: Sla
         u_right=sm.u_right,
         depth=sm.depth,
     )
+
+
+def build_stereo_frames(imgs_left: torch.Tensor, imgs_right: torch.Tensor, cfg: SlamConfig) -> Frame:
+    """The frames of B rectified pairs [B, H, W] on one device, with a
+    leading [B] on every leaf: the counterpart of the JAX package's
+    ``make_batched_frontend`` (``parallel/multi_sequence.py:25-42``), which
+    puts one sequence on each device of a mesh.  Here all B pairs go
+    through one pyramid, one detection pass, one ``orb_describe`` launch
+    over the 2B images and one ``stereo_sad`` launch over the B pairs."""
+    if imgs_left.dim() != 3 or imgs_left.shape != imgs_right.shape:
+        raise ValueError(f"want two [B, H, W] stacks of one shape, got {tuple(imgs_left.shape)}, "
+                         f"{tuple(imgs_right.shape)}")
+    return build_stereo_frame(imgs_left, imgs_right, cfg)
 
 
 def build_rgbd_frame(img: torch.Tensor, depth_map: torch.Tensor, cfg: SlamConfig) -> Frame:

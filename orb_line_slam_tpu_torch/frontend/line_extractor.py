@@ -9,7 +9,9 @@ ratio test); each endpoint's disparity comes from intersecting the
 matched right segment at the endpoint's row, refined by a 17-candidate
 1D SAD search against the right image (first minimum on ties, as
 ``jnp.argmin``) with a parabola fit.  Everything stays on the device of
-the input images.
+the input images.  B pairs run as the pair's function under
+``torch.func.vmap`` (``ops/lines.py`` and ``ops/lbd.py`` have no in-place
+write and no read-back, and every operator they use has a batching rule).
 """
 
 from __future__ import annotations
@@ -87,7 +89,13 @@ def _sad_refine(imgs, pe, disp0):
 def build_line_features(img_left: torch.Tensor, img_right: torch.Tensor, cam: CameraIntrinsics,
                         cfg: LineConfig) -> LineFeatures:
     """Lines of the left image with LBD descriptors and stereo endpoint
-    depths from the matched right-image segment (rectified pair)."""
+    depths from the matched right-image segment (rectified [H, W] pair).
+    B pairs [B, H, W] give a leading [B] on every leaf: the pair's function
+    under ``torch.func.vmap``, as ``jax.vmap`` batches it in the JAX
+    package's batched frame (``pipeline/track_step.py:392-395``), so the
+    launches do not grow with B."""
+    if img_left.dim() == 3:
+        return torch.func.vmap(lambda l, r: build_line_features(l, r, cam, cfg))(img_left, img_right)
     imgs = torch.stack([img_left, img_right]).to(torch.float32)
     gxs, gys = sobel_gradients(imgs)
     det = merge_collinear(detect_lines(imgs, n_lines=cfg.n_lines, grads=(gxs, gys)))

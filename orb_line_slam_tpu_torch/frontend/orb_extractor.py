@@ -6,10 +6,12 @@ Port of ``orb_line_slam_tpu/frontend/orb_extractor.py`` —
 ``extract_orb_stereo`` (279-356); ``shift_blur_tiles`` (155-211) lives in
 ``ops/describe.py``.  Images are cast to float32 before any arithmetic
 (uint8 wraps in torch, as ``orb_extractor.py:226,293`` cast for the same
-reason).  The stereo pair runs as one [2, H, W] batch through pyramid
+reason).  A stereo pair runs as one [2, H, W] batch through pyramid
 and detection, and one fused kernel launch (``ops/describe.py``) cuts
 both images' tiles, shifts and blurs them and takes orientation and
-BRIEF without writing a tile; ``extract_orb`` (the mono and RGB-D
+BRIEF without writing a tile; B pairs (the batched multi-sequence front
+end, ``orb_line_slam_tpu/parallel/multi_sequence.py:25-42``) run as one
+[2B, H, W] batch with one launch; ``extract_orb`` (the mono and RGB-D
 frames' extraction) launches the same kernel on a batch of one.
 ``extract_orb_with_tiles`` returns tiles, so it keeps the patch-tile
 gather (``ops/patches.py``).
@@ -156,24 +158,34 @@ def extract_orb(image: torch.Tensor, cfg: OrbConfig) -> FrameFeatures:
 
 
 def extract_orb_stereo(img_left: torch.Tensor, img_right: torch.Tensor, cfg: OrbConfig):
-    """Joint extraction for a stereo pair.  Returns (featL, atlasL, axyL,
-    deltaL, featR, atlasR, offs): the two pyramid atlases with their level
-    row offsets, and the left keypoints' integer atlas coordinates and
-    sub-pixel detection offsets.  The stereo SAD cuts its raw
-    integer-aligned patches from the atlases itself; no tile tensor is
+    """Joint extraction for a stereo pair [H, W], or for B pairs [B, H, W]
+    with a leading [B] on every returned tensor but ``offs``.  Returns
+    (featL, atlasL, axyL, deltaL, featR, atlasR, offs): the pyramid atlases
+    with their level row offsets, and the left keypoints' integer atlas
+    coordinates and sub-pixel detection offsets.  All 2B images go through
+    one pyramid, one detection pass and one describe launch, lefts first
+    (so that each side's atlases stay contiguous).  The stereo SAD cuts its
+    raw integer-aligned patches from the atlases itself; no tile tensor is
     made here (the JAX package returns tilesL and tilesR instead)."""
-    img = torch.stack([img_left, img_right]).to(torch.float32)
+    single = img_left.dim() == 2
+    if single:
+        img_left, img_right = img_left[None], img_right[None]
+    b = img_left.shape[0]
+    img = torch.stack([img_left, img_right]).to(torch.float32).reshape(2 * b, *img_left.shape[1:])
     levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
     atlas, offs = pyramid_atlas(levels)
     xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, _level_offsets(levels), cfg)
     axy = axy.contiguous()
     angles, desc = describe_keypoints(atlas, axy, deltas.contiguous())
     n = cfg.n_features
-    feats = [
-        FrameFeatures(
-            xy=xy[i], response=resp[i], angle=angles[i * n:(i + 1) * n],
-            octave=octv[i], desc=desc[i * n:(i + 1) * n], valid=valid[i],
-        )
-        for i in range(2)
-    ]
-    return feats[0], atlas[0], axy[0], deltas[0], feats[1], atlas[1], offs
+    angles, desc = angles.reshape(2 * b, n), desc.reshape(2 * b, n, 32)
+
+    def side(i):
+        rows = slice(i * b, (i + 1) * b)
+        return FrameFeatures(xy=xy[rows], response=resp[rows], angle=angles[rows], octave=octv[rows],
+                             desc=desc[rows], valid=valid[rows])
+
+    out = (side(0), atlas[:b], axy[:b], deltas[:b], side(1), atlas[b:])
+    if single:
+        out = tuple(type(x)(*(t[0] for t in x)) if isinstance(x, FrameFeatures) else x[0] for x in out)
+    return (*out, offs)

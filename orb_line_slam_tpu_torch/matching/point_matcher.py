@@ -43,8 +43,7 @@ def rotation_consistency(angle_a: torch.Tensor, angle_b_matched: torch.Tensor,
     histogram bins holding >= 10% of the best bin (ComputeThreeMaxima)."""
     diff = torch.remainder((angle_a - angle_b_matched) * (180.0 / math.pi), 360.0)
     bins = torch.clamp((diff * HISTO_BINS / 360.0).to(torch.int32), 0, HISTO_BINS - 1).long()
-    counts = torch.zeros(HISTO_BINS, dtype=torch.int64, device=mask.device)
-    counts = counts.index_add_(0, bins, mask.to(torch.int64))
+    counts = torch.zeros(HISTO_BINS, dtype=torch.int64, device=mask.device).index_add(0, bins, mask.to(torch.int64))
     top3 = torch.sort(counts, descending=True).values[:3]
     good_bin = (counts >= top3[2]) & (counts * 10 >= top3[0]) & (counts > 0)
     return mask & good_bin[bins]

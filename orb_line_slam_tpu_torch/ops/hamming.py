@@ -10,6 +10,8 @@ Descriptors are uint8 [..., 32], LSB-first within each byte, as OpenCV.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 DESC_BYTES = 32
@@ -39,8 +41,17 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 
 
 def _words(desc: torch.Tensor) -> torch.Tensor:
-    """uint8 [..., 32] -> int64 [..., 4] (same bits)."""
-    return desc.contiguous().clone().view(torch.int64)
+    """uint8 [..., 32] -> int64 [..., 4] (same bits: byte j of a word is
+    bits 8j..8j+7, as a little-endian view gives them).  Built with shifts
+    and a sum of disjoint bit fields rather than a dtype view, which
+    torch.func.vmap cannot batch in every torch release."""
+    b = desc.reshape(*desc.shape[:-1], DESC_BYTES // 8, 8).to(torch.int64)
+    return torch.sum(b << _byte_shifts(desc.device), dim=-1)
+
+
+@functools.lru_cache(maxsize=8)
+def _byte_shifts(device: torch.device) -> torch.Tensor:
+    return torch.arange(0, 64, 8, dtype=torch.int64, device=device)
 
 
 def _popcount64(x: torch.Tensor) -> torch.Tensor:

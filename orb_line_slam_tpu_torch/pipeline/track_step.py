@@ -13,9 +13,15 @@ Port of ``orb_line_slam_tpu/pipeline/track_step.py`` — ``MapMirror``
   counts, per-mirror-line found/visible counts (341-356).
 
 Everything stays on the device and no value is read back; the host
-reads what it needs from the returned ``TrackOut``.  The TPU-tunnel
-machinery (``fused_frame_track_step``, ``pack_kf_event``, the packed
-float buffer) is not ported.  Path B's EPnP hypotheses are the JAX
+reads what it needs from the returned ``TrackOut``.
+``batched_frame_track`` is the batched multi-sequence frame
+(``parallel/multi_sequence.py:60-69`` over ``fused_frame_track_step``,
+``track_step.py:374-407``): the front end of B pairs with one launch of
+each kernel, the line front end and ``track_step`` under
+``torch.func.vmap``, so the launches per frame do not grow with B; the
+step writes nothing in place, so vmap can batch every operator.  The
+rest of the TPU-tunnel machinery (``pack_kf_event``, the packed float
+buffer) is not ported.  Path B's EPnP hypotheses are the JAX
 step's own draw from ``PRNGKey(17)`` on every frame
 (``backend/pnp.py::draw_hypotheses``).
 """
@@ -30,6 +36,8 @@ from ..backend.pnp import solve_pnp_ransac
 from ..backend.pose_opt import pose_optimize
 from ..backend.residuals import line_obs_coeffs
 from ..config import SlamConfig
+from ..frontend.frame import build_stereo_frames
+from ..frontend.line_extractor import build_line_features
 from ..geometry.camera import project_stereo
 from ..geometry.se3 import se3_apply, se3_compose
 from ..matching.line_matcher import search_lines_by_projection
@@ -85,8 +93,7 @@ def _invert_matches(m_idx, m_mask, n_rows: int, n_feats: int):
     dev = m_idx.device
     tgt = torch.where(m_mask, m_idx, torch.full_like(m_idx, n_feats)).long()
     out = torch.full((n_feats + 1,), -1, dtype=torch.int32, device=dev)
-    out[tgt] = torch.arange(n_rows, dtype=torch.int32, device=dev)
-    return out[:n_feats]
+    return out.scatter(0, tgt, torch.arange(n_rows, dtype=torch.int32, device=dev))[:n_feats]
 
 
 def _pick(cond, a, b):
@@ -271,6 +278,31 @@ def track_step(
         ln_found_acc=ln_found_acc, ln_vis_acc=ln_vis_acc,
         ln_match_idx=ln_match_idx, ln_match_mask=ln_match_mask,
     )
+
+
+def batched_frame_track(imgs_l: torch.Tensor, imgs_r: torch.Tensor, stacked_inputs, cfg: SlamConfig,
+                        has_lines: bool):
+    """One frame of B sequences: imgs_l / imgs_r [B, H, W] and
+    stacked_inputs, ``track_step``'s arguments from ``last_frame`` to
+    ``ln_valid`` without ``lf`` (Frame, MapMirror, 15 carry and reference
+    tensors, the 4 line-table tensors), each with a leading [B].  The
+    front ends run on the batch (the kernels are launched outside the
+    vmap, once each); ``track_step`` runs under ``torch.func.vmap``, where
+    Path B's EPnP draw (``PNP_SEED``) is the same for every sequence, as
+    under ``jax.vmap``.  Returns (frames, line features or None,
+    TrackOut), each with a leading [B]."""
+    frames = build_stereo_frames(imgs_l, imgs_r, cfg)
+    lfs = build_line_features(imgs_l, imgs_r, cfg.camera, cfg.lines) if cfg.lines.enabled else None
+    last_frame, mir, *rest = stacked_inputs
+    carry, table = rest[:15], rest[15:]
+
+    def one(frame, lf, last_frame, mir, carry, table):
+        return track_step(frame, last_frame, mir, *carry, lf, *table, cfg=cfg, has_lines=has_lines)
+
+    lf_in = lfs if has_lines else None
+    outs = torch.func.vmap(one, in_dims=(0, 0 if has_lines else None, 0, 0, 0, 0))(
+        frames, lf_in, last_frame, mir, tuple(carry), tuple(table))
+    return frames, lfs, outs
 
 
 def remap_stats(out: TrackOut, remap: torch.Tensor, ln_remap: torch.Tensor) -> TrackOut:

@@ -170,6 +170,7 @@ class Tracker:
         self._mirror_dirty = True
         self._ref_frame_dev = None       # device Frame of the ref KF
         self._ref_frame_kf = -1
+        self.cur_lines: Optional[LineFeatures] = None  # the current frame's line features
         self._carry = None               # (frame, TrackOut) of the last tracked frame
         self._prev_for_dispatch = None
         # Mapping chains awaiting application, oldest first:
@@ -229,6 +230,7 @@ class Tracker:
 
     # ------------------------------------------------------------------
     def _track(self, frame: Frame, lines: Optional[LineFeatures], timestamp: float):
+        self.cur_lines = lines
         # Non-blocking polls: apply finished mapping chains (then defer
         # their local BA) and a finished local BA.
         self.poll_map_jobs()
@@ -246,7 +248,11 @@ class Tracker:
         ))
         return self.current_pose()
 
-    def _dispatch_track_step(self, frame: Frame, lines: Optional[LineFeatures]) -> TrackOut:
+    def _dispatch_inputs(self, lines: Optional[LineFeatures]):
+        """Mirror refresh and the carry or cold-start inputs of the next
+        track step (``tracking.py:395-441``), shared by the single and the
+        batched multi-sequence dispatch.  Returns (mirror, last frame,
+        track_step's arguments from last_gid to ln_vis_acc)."""
         if self._mirror_dirty or self._mir is None or self._mir["ref_kf"] != self.ref_kf:
             self._refresh_mirror(lines)
         mir = self._mir
@@ -279,6 +285,10 @@ class Tracker:
                 torch.zeros(Lcap, dtype=torch.int32, device=dev),
                 torch.zeros(Lcap, dtype=torch.int32, device=dev),
             )
+        return mir, last_frame, args
+
+    def _dispatch_track_step(self, frame: Frame, lines: Optional[LineFeatures]) -> TrackOut:
+        mir, last_frame, args = self._dispatch_inputs(lines)
         has_lines = mir["has_lines"] and lines is not None
         out = track_step(frame, last_frame, mir["pt"], *args, lines if has_lines else None,
                          mir["ln_start"], mir["ln_end"], mir["ln_desc"], mir["ln_valid"],

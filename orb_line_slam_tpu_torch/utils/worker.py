@@ -21,10 +21,19 @@ device tensor across threads calls ``record_stream`` on it.
 
 from __future__ import annotations
 
+import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor, wait
 
 import torch
+
+# torch's forward-mode AD levels are process-wide, not per thread: two
+# threads inside torch.func.jacfwd at once invalidate each other's levels
+# ("Trying to access a forward AD level with an invalid index").  Every
+# jacfwd of the package (Sim3 refinement on a loop-closing worker, the
+# pose graph at a correction) holds this lock; B sequences' workers and
+# the multi-sequence consume pool run them side by side.
+FORWARD_AD_LOCK = threading.Lock()
 
 
 class Worker:

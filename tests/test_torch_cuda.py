@@ -1,6 +1,8 @@
 """Tests that need a CUDA card: the hand-written kernels (patch tiles,
-fused describe, fused stereo SAD) against their plain versions, and the
-point and line front ends on the card against the CPU.  They skip where no card is present; run them on the card with
+fused describe, fused stereo SAD, one pair or a batch of pairs) against
+their plain versions, and the point front end (one pair or a batch), the
+line front end and the frames of mono and RGB-D images on the card
+against the CPU.  They skip where no card is present; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -91,6 +93,127 @@ def test_stereo_sad_kernel_matches_plain(cuda, h, w, n, fractional):
     ref = stereo_sad.stereo_sad_reference(atlas[0], axy[0], atlas[1], cx, cy)
     assert bool(((sad - ref).abs() <= 1e-5 * ref + 1e-2).all())
     assert float((sad.argmin(1) == ref.argmin(1)).float().mean()) >= 0.999
+
+
+def test_batched_stereo_sad_kernel_matches_plain_in_one_launch(cuda):
+    """Three pairs in one launch: the same tolerances as one pair, against
+    the batched plain version and against the kernel on each pair alone."""
+    b, h, w, n = 3, 200, 300, 120
+    rng = np.random.default_rng(b)
+    noise = torch.from_numpy((rng.random((2 * b, 1, h, w)) * 255).astype(np.float32)).to(cuda)
+    atlas = torch.nn.functional.avg_pool2d(noise, 5, 1, 2, count_include_pad=False)[:, 0].contiguous()
+    xy = np.stack([rng.integers(-20, w + 20, (b, n)), rng.integers(-20, h + 20, (b, n))], -1).astype(np.int32)
+    axy = torch.from_numpy(xy).to(cuda)
+    cx = (axy[..., 0].float() - torch.from_numpy(rng.uniform(0, 60, (b, n)).astype(np.float32)).to(cuda)).contiguous()
+    cy = (axy[..., 1].float() + torch.from_numpy(rng.uniform(0, 1, (b, n)).astype(np.float32)).to(cuda)).contiguous()
+    before = stereo_sad.launches
+    sad = stereo_sad.stereo_sad(atlas[:b], axy, atlas[b:], cx, cy)
+    torch.cuda.synchronize()
+    assert stereo_sad.launches == before + 1 and sad.shape == (b, n, 11)
+    ref = stereo_sad.stereo_sad_reference(atlas[:b], axy, atlas[b:], cx, cy)
+    assert bool(((sad - ref).abs() <= 1e-5 * ref + 1e-2).all())
+    assert float((sad.argmin(-1) == ref.argmin(-1)).float().mean()) >= 0.999
+    for i in range(b):
+        assert torch.equal(sad[i], stereo_sad.stereo_sad(atlas[i], axy[i], atlas[b + i], cx[i], cy[i]))
+
+
+def test_batched_frames_on_card_launch_each_kernel_once(cuda):
+    """build_stereo_frames on three pairs: one orb_describe over the six
+    images and one stereo_sad over the three pairs, no tile gather; each
+    pair's frame held to the CPU frame under the frame contract."""
+    from orb_line_slam_tpu_torch.config import CameraIntrinsics, LineConfig, OrbConfig, SlamConfig
+    from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene
+    from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frames
+
+    cam = CameraIntrinsics(fx=320.0, fy=320.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=1000, n_levels=4), lines=LineConfig(enabled=False))
+    scene = SyntheticScene(cam, n_points=900, seed=5, extent=((-24, 40), (-4, 4), (-32, 32)))
+    pairs = [scene.render_stereo(np.eye(3), np.array([0.0, 0.0, -z])) for z in (0.0, 0.4, 0.8)]
+    left = torch.from_numpy(np.stack([p[0] for p in pairs]))
+    right = torch.from_numpy(np.stack([p[1] for p in pairs]))
+    fc = build_stereo_frames(left, right, cfg).numpy()
+    before = (patches.launches, describe.launches, stereo_sad.launches)
+    fg = build_stereo_frames(left.to(cuda), right.to(cuda), cfg).numpy()
+    assert (patches.launches, describe.launches, stereo_sad.launches) == (before[0], before[1] + 1, before[2] + 1)
+    assert fg.xy.shape == (3, 1000, 2) and fg.depth.shape == (3, 1000)
+    for i in range(3):
+        assert (fc.valid[i] == fg.valid[i]).mean() > 0.98
+        both = fc.valid[i] & fg.valid[i]
+        assert np.abs(fc.xy[i][both] - fg.xy[i][both]).max() < 0.51
+        dc, dg = fc.depth[i][both], fg.depth[i][both]
+        assert ((dc > 0) == (dg > 0)).mean() > 0.95
+        hit = (dc > 0) & (dg > 0)
+        assert hit.sum() > 100 and (np.abs(dc[hit] - dg[hit]) / dc[hit] < 0.01).mean() > 0.95
+
+
+def test_batched_frame_track_on_card_has_no_vmap_fallback(cuda):
+    """One batched_frame_track of two sequences on the card, lines on, with
+    functorch's per-sample fallback warning raised as an error (an operator
+    without a batching rule in this torch release would multiply the
+    launches by B); each sequence's TrackOut equals the unbatched
+    track_step on the same tensors within 1e-4 (rad, m), assoc_gid on
+    >= 99% of rows."""
+    import warnings
+
+    from orb_line_slam_tpu_torch.config import CameraIntrinsics, LineConfig, MapConfig, OrbConfig, SlamConfig
+    from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene
+    from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frames
+    from orb_line_slam_tpu_torch.frontend.line_extractor import build_line_features
+    from orb_line_slam_tpu_torch.geometry.host import nbackproject
+    from orb_line_slam_tpu_torch.parallel.multi_sequence import _stack, _take
+    from orb_line_slam_tpu_torch.pipeline.track_step import MapMirror, batched_frame_track, track_step
+    from orb_line_slam_tpu_torch.slam_map.map_store import MapStore
+
+    cam = CameraIntrinsics(fx=400.0, fy=400.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=512, n_levels=4), lines=LineConfig(n_lines=32),
+                     map=MapConfig(max_keyframes=16, max_points=4096, local_points=1024))
+    per_seq, imgs = [], []
+    for seed in (3, 9):
+        scene = SyntheticScene(cam, n_points=700, n_lines=30, seed=seed, extent=((-14, 14), (-6, 6), (8, 60)))
+        pairs = [scene.render_stereo(np.eye(3), -np.array([0.0, 0.0, z])) for z in (0.0, 0.3)]
+        imgs.append(pairs[1])
+        left0 = torch.from_numpy(pairs[0][0])[None].to(cuda)
+        f0 = _take(build_stereo_frames(left0, torch.from_numpy(pairs[0][1])[None].to(cuda), cfg), 0)
+        lf = build_line_features(left0[0], torch.from_numpy(pairs[0][1]).to(cuda), cam, cfg.lines).numpy()
+        fh = f0.numpy()
+        store = MapStore(cfg.map, cfg.orb.n_features, n_lines=32)
+        kf = store.add_keyframe(fh, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), 0, 0.0)
+        idx = np.nonzero(fh.valid & (fh.depth > 0))[0]
+        ids = store.add_points(nbackproject(cam, fh.xy, fh.depth)[idx], fh.desc[idx], fh.octave[idx], kf, idx)
+        snap = np.full(cfg.map.local_points, -1, np.int32)
+        snap[: len(ids)] = ids
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+        mir = MapMirror(*(t(a) for a in (store.pt_pos, store.pt_desc, store.pt_oct, store.pt_valid,
+                                         store.pt_max_dist, store.pt_min_dist, store.pt_normal)))
+        zeros = lambda n: torch.zeros(n, dtype=torch.int32, device=cuda)  # noqa: E731
+        s = nbackproject(cam, lf.p0, np.where(lf.depth0 > 0, lf.depth0, 10.0)).astype(np.float32)
+        e = nbackproject(cam, lf.p1, np.where(lf.depth1 > 0, lf.depth1, 10.0)).astype(np.float32)
+        per_seq.append((f0, mir, torch.full((512,), -1, dtype=torch.int32, device=cuda),
+                        torch.eye(3, device=cuda), torch.zeros(3, device=cuda), torch.eye(3, device=cuda),
+                        torch.zeros(3, device=cuda), torch.tensor(False, device=cuda), f0.xy, f0.desc, f0.angle,
+                        t(store.kf_obs_lm[kf].astype(np.int32)), t(snap), zeros(1024), zeros(1024), zeros(32),
+                        zeros(32), t(s), t(e), t(lf.desc), t(lf.valid)))
+    stacked = tuple(_stack(list(items)) for items in zip(*per_seq))
+    left = torch.from_numpy(np.stack([p[0] for p in imgs])).to(cuda)
+    right = torch.from_numpy(np.stack([p[1] for p in imgs])).to(cuda)
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            before = (describe.launches, stereo_sad.launches)
+            frames, lfs, outs = batched_frame_track(left, right, stacked, cfg, has_lines=True)
+            torch.cuda.synchronize()
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    assert (describe.launches, stereo_sad.launches) == (before[0] + 1, before[1] + 1)
+    last_frame, mir, *rest = stacked
+    for b in range(2):
+        want = track_step(_take(frames, b), _take(last_frame, b), _take(mir, b), *(x[b] for x in rest[:15]),
+                          _take(lfs, b), *(x[b] for x in rest[15:]), cfg=cfg, has_lines=True)
+        got = _take(outs, b)
+        assert int(want.n_inliers) > 50
+        assert float((got.R - want.R).abs().max()) <= 1e-4 and float((got.t - want.t).abs().max()) <= 1e-4
+        assert float((got.assoc_gid == want.assoc_gid).float().mean()) >= 0.99
 
 
 def test_fused_wrappers_reject_mixed_devices(cuda):
