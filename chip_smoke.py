@@ -13,9 +13,12 @@ on worker threads) — through ``System.track_stereo``, and monocular and
 RGB-D tracking at TUM fr1's size through ``System.track_monocular`` and
 ``System.track_rgbd``, and B stereo sequences at once through
 ``MultiSequenceTracker.process_stereo`` (one batched step per time step,
-each sequence a System), after building the hand-written CUDA kernels
-from the sources in this checkout and holding each to its plain PyTorch
-version.  Run from the root of a checkout:
+each sequence a System), and the distributed global BA (landmark-sharded
+over a shard mesh, in one process and across processes through
+``torch.distributed``, and the LoopCloser's route to it), after building
+the hand-written CUDA kernels from the sources in this checkout and
+holding each to its plain PyTorch version.  Run from the root of a
+checkout:
 
     python3 chip_smoke.py
 
@@ -51,14 +54,14 @@ Phases (each fails loudly, and the script exits non-zero):
      the CPU; build_mono_frame and build_rgbd_frame on one TUM-size image
      vs their CPU plain paths, each launching exactly one orb_describe and
      no patch_tiles and making no [N, 32, 32] tensor;
-  5. the slice: 60 frames, state OK, >= 3 keyframes, >= 1 local BA, one
+  5. the slice: 40 frames, state OK, >= 3 keyframes, >= 1 local BA, one
      orb_describe and one stereo_sad launch per frame and no patch-tile
      launch, ATE no more than 10% + 1 cm above the JAX package's ATE on
      the same frames and schedule;
   6. one line frame: build_line_features on the card vs its plain path
      on the CPU, on a EuRoC-size pair, held to the line contract of
      tests/test_tpu_parity.py, and its time per stereo pair;
-  7. the point+line slice: 60 EuRoC-size frames (BASELINE config #2's
+  7. the point+line slice: 40 EuRoC-size frames (BASELINE config #2's
      camera and budgets), state OK, >= 3 keyframes, >= 1 joint
      point+line BA with line observations, >= 10 map lines, line
      inliers on most frames, the same launches per frame, ATE no more
@@ -76,7 +79,7 @@ Phases (each fails loudly, and the script exits non-zero):
      on a drifted 100-keyframe ring with one loop edge, and the
      matrix-free CG global BA at the default map capacity (512 cameras,
      65,536 points, 524,288 observations; held to the CPU over its
-     first two LM iterations, to the truth over all twelve);
+     first LM iteration, to the truth over all twelve);
  10. the loop slice: bench.py's 170-frame closed circuit with
      use_loop_closing=True, state OK, >= 1 loop closed, >= 1 global BA
      applied (the dense joint point+line solve), the same launches per
@@ -89,8 +92,8 @@ Phases (each fails loudly, and the script exits non-zero):
      closer's per-keyframe work);
  11. the shipping schedule, System(cfg, device="cuda") as a user makes
      it: (a) bench.py::_bench_pipeline (the KITTI camera, 2000 features,
-     8 levels, lines on, loop closing on; phase 5's 60 frames; frames/s
-     over frames 12-59 as full_pipeline_fps), state OK, >= 3 keyframes,
+     8 levels, lines on, loop closing on; phase 5's 40 frames; frames/s
+     over frames 12-39 as full_pipeline_fps), state OK, >= 3 keyframes,
      >= 1 local BA, the same launches per frame, ATE within
      max(1.25 x, + 2 cm) of phase 5's; (b) phase 10's circuit: state OK,
      >= 1 loop detected on the loop-closing worker and corrected on the
@@ -98,30 +101,53 @@ Phases (each fails loudly, and the script exits non-zero):
      applied by poll_global_ba, ATE within max(1.25 x, + 2 cm) of phase
      10's pinned run (tests/test_loop_closure_e2e.py's bound); for
      both, the frames from each deferred local BA's pack to its apply;
- 12. the monocular slice: 60 TUM-size frames (tum_config) through
+ 12. the monocular slice: 40 TUM-size frames (tum_config) through
      System.track_monocular, state OK, initialised at the JAX package's
      frame, >= 3 keyframes, >= 1 local BA, > 80 map points, one
      orb_describe per frame and nothing else, similarity-aligned ATE no
      more than 10% + 1 cm above the JAX package's;
- 13. the RGB-D slice: 60 TUM-size frames of a room through
+ 13. the RGB-D slice: 40 TUM-size frames of a room through
      System.track_rgbd, state OK, >= 3 keyframes, >= 1 local BA, one
      orb_describe per frame and nothing else, ATE no more than 10% + 1 cm
      above the JAX package's;
  14. batched multi-sequence SLAM (BASELINE config #4), each sequence a
      System on its defaults (bench_pipeline_config: lines and loop
-     closing on): (a) B = 2, phase 5's 60 frames and the same frames in
+     closing on): (a) B = 2, phase 5's 40 frames and the same frames in
      reverse order; on three steady batched steps each sequence's
      TrackOut is held to an unbatched track_step on the same tensors
      (1e-4 rad, 1e-4 m, assoc_gid on >= 99% of rows); >= half the steps
      batched; each ATE within max(1.25 x, + 2 cm) of phase 11 (a)'s;
-     (b) B = 1, 4, 8, sequence b starting at frame 3b, 18 steps each
+     the first 30 frames of each direction;
+     (b) B = 1, 4, 8, sequence b starting at frame 3b, 10 steps each
      (B = 2 is (a)'s run): multiseq_aggregate_fps (median and spread of
      three windows of the batched steps), host ms per batched step, the
      speedup against B = 1, and the kernels and device ms of one steady
      batched step profiled alone at B = 1 and 4.  In both, every batched step launches
      exactly one orb_describe and one stereo_sad (a per-sequence step one
      of each per sequence), and a per-sample fallback of torch.func.vmap
-     fails the run.
+     fails the run;
+ 15. the distributed global BA (BASELINE config #5), S shards sharing
+     cuda:0 (the card is one GPU, so every ratio is the sharding overhead
+     on one card, not a scaling): (a) the sharded dense LM and CG on 4
+     shards at the CPU tests' size (12 cameras, 512 landmarks, 3,072
+     observations), held to the same calls on CPU tensors and to the
+     single-device solvers on the card under the pose contract; (b)
+     dryrun_multichip (256 x 65,536 x 262,144, 2 LM x 12 CG) and the
+     loop closer's CG at the default map capacity (phase 9's problem and
+     solve) at S = 1 and 4 against bundle_adjust_cg: host and device ms,
+     kernels, all-reduces and their bytes, pose agreement, median
+     landmark error, dist_gba_efficiency = t_single / t_mesh; (c)
+     multihost_worker in a child process, NCCL at world size 1 through
+     multihost.initialize, equal to (b)'s S = 1 solve; (d) two
+     multihost_worker processes of 2 shards each on the card, gloo with
+     CUDA tensors: replicated outputs bit-identical on both ranks, within
+     the pose contract of (b)'s S = 4 solve; (e) copies of phase 10's
+     final map under LoopClosers at the default map capacity with a
+     4-shard mesh: _pack_gba chooses "sharded_cg", and run_global_ba and
+     the asynchronous dispatch_global_ba (solved on the global-BA
+     worker's stream) + poll_global_ba are held to bundle_adjust_cg on
+     the same pack (inlier flags on >= 99% of the rows, the poses written
+     to the map).  None of the three kernels is launched on this path.
 Phases 5, 7, 8, 10, 12 and 13 pin the schedule the JAX references were
 computed on (System(..., async_loop=False), gba_async = False,
 tracker.async_mapping = False).  Every slice run prints the tracking thread's per-frame host ms (p50,
@@ -133,7 +159,8 @@ A fixed host-CPU probe is timed at the start and after each slice, and
 the seconds since the start are printed after each group of phases.
 torch.profiler now and then returns a window with device records
 missing; such a window is taken again (a bounded number of times, then
-the run fails), and a line near the end says how many were.  The line
+the run fails), and a line near the end says how many were.  All five sequences are rendered once, before phase 4, by worker
+processes (the frames equal those of rendering each in order).  The line
 before the last lists the three kernels, with their launches over
 phases 4, 5, 7, 10, 11, 12, 13 and 14; the last line is the JSON device
 record.
@@ -142,11 +169,13 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from typing import NamedTuple
@@ -155,16 +184,17 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# ATE (m) of the JAX package (orb_line_slam_tpu) on the same 60 frames,
-# rendered by orb_line_slam_tpu_torch.data.synthetic with the phase-5
-# config, on the same pinned schedule (System(use_loop_closing=False),
-# tracker.async_mapping = False, tracker.pipeline_depth = 0), run on the
-# CPU with JAX_PLATFORMS=cpu (14 keyframes, final state OK).
-JAX_CPU_REFERENCE_ATE_M = 0.01896567472094079
-# The same for phase 7: the JAX package on phase 7's 60 frames and
-# config, lines on, same schedule, on the CPU (5 keyframes, final state
-# OK).
-JAX_CPU_REFERENCE_ATE_LINES_M = 0.005195998586362491
+# ATE (m) of the JAX package (orb_line_slam_tpu) on the same N_FRAMES (40)
+# frames, rendered by orb_line_slam_tpu_torch.data.synthetic with the
+# phase-5 config, on the same pinned schedule (System(use_loop_closing=
+# False), tracker.async_mapping = False, tracker.pipeline_depth = 0), run
+# on the CPU with JAX_PLATFORMS=cpu (10 keyframes, final state OK; on the
+# earlier 60 frames: 0.01896567472094079 m, 14 keyframes).
+JAX_CPU_REFERENCE_ATE_M = 0.024949906114801246
+# The same for phase 7: the JAX package on phase 7's 40 frames and
+# config, lines on, same schedule, on the CPU (4 keyframes, final state
+# OK; on 60 frames 0.005195998586362491 m, 5 keyframes).
+JAX_CPU_REFERENCE_ATE_LINES_M = 0.005405505107878567
 # Phase 7's scene (the camera's working volume, m) and speed: 0.025 m per
 # frame is 0.5 m/s at EuRoC's 20 Hz.  At 0.05 m/frame a weakly supported
 # keyframe late in the sequence can lock a ~0.5 m pose error into the
@@ -189,21 +219,23 @@ LOOP_NOISE_SIGMA = 6.0
 # The monocular slice (phase 12): tests/test_mono_tracking.py's scene seen
 # by the TUM fr1 camera (tum_config), moving 0.05 m sideways and 0.02 m
 # forward per frame.  ATE (m, similarity-aligned over the tracked frames)
-# of the JAX package on these 60 frames, rendered by
+# of the JAX package on these 40 frames, rendered by
 # orb_line_slam_tpu_torch.data.synthetic, System(use_loop_closing=False,
 # async_loop=False), tracker.async_mapping = False, pipeline_depth = 0,
 # track_monocular, on the CPU with JAX_PLATFORMS=cpu: initialised at
-# frame 3, 57 frames tracked, 9 keyframes, final state OK.  The slow test
+# frame 3, 37 frames tracked, 7 keyframes, final state OK (on 60 frames:
+# 0.02562366931754967 m).  The slow test
 # tests/test_torch_tum_references.py recomputes this and phase 13's.
-JAX_CPU_REFERENCE_ATE_MONO_M = 0.02562366931754967
+JAX_CPU_REFERENCE_ATE_MONO_M = 0.029566473558291957
 JAX_CPU_MONO_INIT_FRAME = 3
 MONO_SCENE = dict(n_points=1000, seed=12, extent=((-10, 10), (-5, 5), (4, 25)))
 MONO_STEP = (0.05, 0.0, 0.02)
 # The RGB-D slice (phase 13): a room inside a Kinect's range, the camera
 # moving 0.015 m per frame (fr1/desk's ~0.4 m/s at 30 Hz) while turning
-# 0.005 rad per frame.  The JAX package on these 60 frames, same schedule,
-# track_rgbd: 16 keyframes, final state OK.
-JAX_CPU_REFERENCE_ATE_RGBD_M = 0.0075543405184823895
+# 0.005 rad per frame.  The JAX package on these 40 frames, same schedule,
+# track_rgbd: 13 keyframes, final state OK (on 60 frames:
+# 0.0075543405184823895 m, 16 keyframes).
+JAX_CPU_REFERENCE_ATE_RGBD_M = 0.003933490183200496
 RGBD_SCENE = dict(n_points=800, seed=13, extent=((-4, 4), (-3, 3), (1, 8)))
 RGBD_VELOCITY, RGBD_YAW_RATE = (0.012, 0.0, 0.009), 0.005
 TUM_DT = 1.0 / 30.0
@@ -213,15 +245,19 @@ TUM_DT = 1.0 / 30.0
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_FLOPS = 67e12
 
-N_FRAMES = 60
+# Frames of the point, point+line, mono and RGB-D slices (60 before phase
+# 15 was added: cut to pay for its time).
+N_FRAMES = 40
 WARMUP_FRAMES = 10
 # Phase 14: pairs of the batched kernel rows of phase 3; the batch sizes of
 # the scaling run, its steps per sequence (bootstrap included) and the
 # stagger of sequence b's first frame (b * MULTISEQ_STAGGER), so that the
 # sequences' keyframe events do not coincide (tools/bench_multiseq.py:65-72).
 MULTISEQ_KERNEL_PAIRS = 4
+MULTISEQ_PAIR_FRAMES = 30         # phase 14 (a): the first 30 of each direction
 MULTISEQ_BATCHES = (1, 4, 8)      # B = 2 is phase 14 (a)'s run
-MULTISEQ_FRAMES = 18
+MULTISEQ_FRAMES = 10
+MULTISEQ_KEEP_STEP = 6            # the batched step profiled alone
 MULTISEQ_STAGGER = 3
 
 
@@ -307,21 +343,66 @@ def tum_config():
                       depth_map_factor=5000.0)
 
 
-def render_tum_sequences(cfg, n_frames):
-    """Phase 12's monocular images and phase 13's (image, depth) pairs,
-    with their ground-truth poses."""
+def tum_jobs(cfg, n_frames):
+    """Render jobs (render_jobs) of phase 12's monocular images and phase
+    13's (image, depth) pairs."""
     from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene
 
-    mono_scene = SyntheticScene(cfg.camera, **MONO_SCENE)
     mono_poses = [(np.eye(3), -np.array(MONO_STEP) * i) for i in range(n_frames)]
-    rgbd_scene = SyntheticScene(cfg.camera, **RGBD_SCENE)
     rgbd_poses = []
     for i in range(n_frames):
         a = RGBD_YAW_RATE * i
         R = np.array([[np.cos(a), 0.0, np.sin(a)], [0.0, 1.0, 0.0], [-np.sin(a), 0.0, np.cos(a)]])
         rgbd_poses.append((R, -R @ (np.array(RGBD_VELOCITY) * i)))
-    return (mono_poses, [mono_scene.render(R, t) for R, t in mono_poses],
-            rgbd_poses, [rgbd_scene.render_rgbd(R, t) for R, t in rgbd_poses])
+    return [(SyntheticScene(cfg.camera, **MONO_SCENE), mono_poses, "mono"),
+            (SyntheticScene(cfg.camera, **RGBD_SCENE), rgbd_poses, "rgbd")]
+
+
+def render_tum_sequences(cfg, n_frames):
+    """Phase 12's monocular images and phase 13's (image, depth) pairs,
+    with their ground-truth poses."""
+    jobs = tum_jobs(cfg, n_frames)
+    mframes, rframes = render_jobs(jobs)
+    return jobs[0][1], mframes, jobs[1][1], rframes
+
+
+# Frames a render worker takes at a time.
+RENDER_CHUNK = 10
+NOISE_CALLS = {"stereo": 2, "mono": 1, "rgbd": 1}
+
+
+def render_chunk(scene, poses, kind, noise_calls):
+    """Render poses in order on scene, its sensor-noise draws numbered from
+    noise_calls (SyntheticScene numbers them per render call)."""
+    scene._noise_calls = noise_calls
+    fn = {"stereo": scene.render_stereo, "mono": scene.render, "rgbd": scene.render_rgbd}[kind]
+    return [fn(R, t) for R, t in poses]
+
+
+def render_jobs(jobs, processes=1):
+    """Render jobs of (SyntheticScene, poses, "stereo" | "mono" | "rgbd")
+    and return one list of frames per job, the frames of each job identical
+    to those of rendering its poses in order on its scene.  The renderer
+    is a Python loop over landmarks, so with processes > 1 the chunks of
+    RENDER_CHUNK frames go to that many forked workers: call it so only
+    before anything touches the card and before any thread starts, as
+    main() does first (a forked worker skips the imports a spawned one
+    repeats)."""
+    import concurrent.futures
+    import multiprocessing
+
+    chunks = [(j, scene, poses[f0:f0 + RENDER_CHUNK], kind, scene._noise_calls + f0 * NOISE_CALLS[kind])
+              for j, (scene, poses, kind) in enumerate(jobs) for f0 in range(0, len(poses), RENDER_CHUNK)]
+    if processes == 1:
+        done = [render_chunk(*c[1:]) for c in chunks]
+    else:
+        context = multiprocessing.get_context("fork")
+        with concurrent.futures.ProcessPoolExecutor(processes, mp_context=context) as pool:
+            done = [f.result() for f in [pool.submit(render_chunk, *c[1:]) for c in chunks]]
+    out = [[] for _ in jobs]
+    for c, frames in zip(chunks, done):
+        out[c[0]].extend(frames)
+    return out
 
 
 def host_probe(tag: str):
@@ -676,12 +757,17 @@ def phase_fused_kernels(cells, mono_cells=()):
     return summary(d_records), summary(s_records)
 
 
-def render_sequence(cfg, n_frames, scene_kw=None, step=0.25):
+def sequence_job(cfg, n_frames, scene_kw=None, step=0.25):
+    """The render job of a stereo slice along circular_trajectory."""
     from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene, circular_trajectory
 
-    scene = SyntheticScene(cfg.camera, **(scene_kw or dict(n_points=700, seed=3)))
-    poses = circular_trajectory(n_frames, step=step)
-    return poses, [scene.render_stereo(R, t) for R, t in poses]
+    return SyntheticScene(cfg.camera, **(scene_kw or dict(n_points=700, seed=3))), \
+        circular_trajectory(n_frames, step=step), "stereo"
+
+
+def render_sequence(cfg, n_frames, scene_kw=None, step=0.25):
+    job = sequence_job(cfg, n_frames, scene_kw, step)
+    return job[1], render_jobs([job])[0]
 
 
 def tile_watch(n_feat):
@@ -1465,18 +1551,11 @@ def phase_loop_pose_graph(K=128, n_live=100):
     return ms
 
 
-def phase_loop_gba_cg(cam, C=512, P=65536, O=524288):
-    """bundle_adjust_cg at the default MapConfig capacity (the size
-    LoopCloser gives it there: 512 cameras, 65,536 points, n_cams * 1024
-    observations), single robust stage 12 + 0, 64 CG iterations, on a
-    perturbed synthetic problem built as phase_bench_ba builds its own.
-    The card is held to the same code on CPU tensors over the first two
-    LM iterations (the CPU takes ~3 s per iteration); the full solve is
-    held to the truth it was perturbed from."""
-    import torch
-
-    from orb_line_slam_tpu_torch.backend.global_ba import bundle_adjust_cg
-
+def gba_capacity_problem(cam, C=512, P=65536, O=524288):
+    """The global BA at the default MapConfig capacity (the size LoopCloser
+    gives bundle_adjust_cg there: 512 cameras, 65,536 points, n_cams * 1024
+    observations), built as phase_bench_ba builds its own: (the ten solver
+    inputs, every camera free, the true translations, the true points)."""
     rng = np.random.default_rng(2)
     pts = np.stack([rng.uniform(-20, 40, P), rng.uniform(-5, 5, P), rng.uniform(5, 60, P)], -1).astype(np.float32)
     R = np.tile(np.eye(3, dtype=np.float32), (C, 1, 1))
@@ -1493,6 +1572,25 @@ def phase_loop_gba_cg(cam, C=512, P=65536, O=524288):
     pts0 = (pts + rng.normal(0, 0.05, pts.shape)).astype(np.float32)
     arrs = (R, t0, np.zeros(C, bool), pts0, np.ones(P, bool), obs_cam, obs_lm, obs,
             rng.integers(0, 4, O).astype(np.int32), np.ones(O, bool))
+    return arrs, t, pts
+
+
+def phase_loop_gba_cg(cam, C=512, P=65536, O=524288):
+    """bundle_adjust_cg at the default MapConfig capacity (the size
+    LoopCloser gives it there: 512 cameras, 65,536 points, n_cams * 1024
+    observations), single robust stage 12 + 0, 64 CG iterations, on a
+    perturbed synthetic problem built as phase_bench_ba builds its own.
+    The card is held to the same code on CPU tensors over the first LM
+    iteration (the CPU takes ~3 s per iteration); the full solve is held
+    to the truth it was perturbed from.  Returns the ms per solve and, for
+    phase 15, the problem, its true points, the card's result and the
+    device ms and kernels per LM iteration."""
+    import torch
+
+    from orb_line_slam_tpu_torch.backend.global_ba import bundle_adjust_cg
+
+    arrs, t, pts_true = gba_capacity_problem(cam, C, P, O)
+    t0 = arrs[1]
 
     def solve(d, iters1=12):
         res = bundle_adjust_cg(*(torch.from_numpy(a).to(d) for a in arrs), cam, iters1=iters1, iters2=0,
@@ -1500,44 +1598,56 @@ def phase_loop_gba_cg(cam, C=512, P=65536, O=524288):
         return [x.cpu().numpy() for x in res]
 
     chi2_0 = float(solve("cuda", iters1=0)[4])
-    _, t2, p2, _, chi2_2 = solve("cuda", iters1=2)
+    _, t1, p1, _, chi2_1 = solve("cuda", iters1=1)
     t_s = time.perf_counter()
-    _, tc, pc, _, chi2c = solve("cpu", iters1=2)
+    _, tc, pc, _, chi2c = solve("cpu", iters1=1)
     cpu_ms = (time.perf_counter() - t_s) * 1e3
-    dt, dp = float(np.abs(t2 - tc).max()), float(np.abs(p2 - pc).max())
-    check(float(chi2_2) < chi2_0, f"CG global BA did not reduce chi2 in two iterations: {chi2_0:.1f} -> {float(chi2_2):.1f}")
-    check(abs(float(chi2_2) - float(chi2c)) <= 0.01 * float(chi2c), f"CG global BA chi2 {float(chi2_2):.1f} vs CPU {float(chi2c):.1f}")
+    dt, dp = float(np.abs(t1 - tc).max()), float(np.abs(p1 - pc).max())
+    check(float(chi2_1) < chi2_0, f"CG global BA did not reduce chi2 in one iteration: {chi2_0:.1f} -> {float(chi2_1):.1f}")
+    check(abs(float(chi2_1) - float(chi2c)) <= 0.01 * float(chi2c), f"CG global BA chi2 {float(chi2_1):.1f} vs CPU {float(chi2c):.1f}")
     check(dt < 1e-3, f"CG global BA cameras differ from the CPU's by {dt:.2e} m")
     t_s = time.perf_counter()
-    Rg, tg, pg, inl, chi2 = solve("cuda")
+    res = solve("cuda")
     first_ms = (time.perf_counter() - t_s) * 1e3
+    Rg, tg, pg, inl, chi2 = res
     check(np.isfinite(tg).all() and np.isfinite(pg).all(), "CG global BA: non-finite result")
-    check(float(chi2) < float(chi2_2), f"CG global BA did not go on reducing chi2: {float(chi2_2):.1f} -> {float(chi2):.1f}")
+    check(float(chi2) < float(chi2_1), f"CG global BA did not go on reducing chi2: {float(chi2_1):.1f} -> {float(chi2):.1f}")
     check(float(np.abs(tg - t).max()) < float(np.abs(t0 - t).max()), "CG global BA did not bring the cameras closer to truth")
-    ms = host_times_ms(lambda: solve("cuda"), n=3)
+    times = []
+    for _ in range(2):                        # the first full solve warmed up
+        t_s = time.perf_counter()
+        solve("cuda")
+        times.append((time.perf_counter() - t_s) * 1e3)
+    ms = statistics.median(times)
     busy, n_k = device_ms(lambda: solve("cuda", iters1=2))          # 2 of the 12 LM iterations under the profiler
     # Per CG iteration the solver streams the per-observation coupling
     # blocks twice (bt_x and b_z: [O, 6, 3] float32 and the int64 index
     # of each sweep): a floor on its memory traffic.
     sweep_bytes = 2 * (O * 18 * 4 + O * 8)
-    print(f"loop global BA (CG): C={C} P={P} O={O}: after 2 LM x 64 CG iterations chi2 {chi2_0:.0f} -> {float(chi2_2):.0f} "
+    print(f"loop global BA (CG): C={C} P={P} O={O}: after 1 LM x 64 CG iterations chi2 {chi2_0:.0f} -> {float(chi2_1):.0f} "
           f"(CPU {float(chi2c):.0f}), cameras within {dt:.1e} m and points within {dp:.1e} m of the CPU's "
           f"({cpu_ms:.0f} ms on this host's CPU); after 12: chi2 {float(chi2):.0f}, worst camera error "
           f"{float(np.abs(t0 - t).max()):.4f} -> {float(np.abs(tg - t).max()):.4f} m; {ms:.1f} ms per solve, "
-          f"{ms / 12:.2f} ms per LM iteration (host clock, result fetched, median of 3; {busy / 2:.1f} ms of device time in "
+          f"{ms / 12:.2f} ms per LM iteration (host clock, result fetched, median of 2; {busy / 2:.1f} ms of device time in "
           f"{n_k // 2} kernels per LM iteration; first full solve {first_ms:.0f} ms); "
           f"the two observation sweeps of one CG iteration move "
           f">= {sweep_bytes / 1e6:.1f} MB, {sweep_bytes / H100_BYTES_PER_S * 1e3 * 64 * 12:.1f} ms per solve at the HBM rate")
-    return ms
+    return ms, {"arrs": arrs, "pts_true": pts_true, "result": res, "ms": ms, "device_ms_per_lm_iteration": busy / 2,
+                "kernels_per_lm_iteration": n_k // 2}
 
 
-def render_loop_sequence(cfg):
+def loop_job(cfg):
+    """The render job of the loop circuit (sensor noise on)."""
     from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene, loop_circuit_trajectory
 
     scene = SyntheticScene(cfg.camera, **LOOP_SCENE)
     scene.noise_sigma = LOOP_NOISE_SIGMA
-    poses = loop_circuit_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS, laps=LOOP_LAPS)
-    return poses, [scene.render_stereo(R, t) for R, t in poses]
+    return scene, loop_circuit_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS, laps=LOOP_LAPS), "stereo"
+
+
+def render_loop_sequence(cfg):
+    job = loop_job(cfg)
+    return job[1], render_jobs([job])[0]
 
 
 def closure_gap_error(store, poses, kf_id, cand):
@@ -1607,13 +1717,13 @@ def phase_loop_slice(cfg, poses, frames):
         "closing_event_ms": {k: closure.get(k) for k in ("detect", "sim3", "correct", "essential_graph", "gba")},
     }))
     add_launches(launches, launches_off)
-    return launches, fps, ate
+    return launches, fps, ate, slam
 
 
 def phase_shipping_pipeline(poses, frames, pinned_ate):
     """Phase 11 (a): bench.py::_bench_pipeline on the card: System(cfg,
-    device="cuda") with bench.py's configuration over phase 5's 60
-    frames, frames/s over frames 12-59 (bench.py's 12 warm-up frames).
+    device="cuda") with bench.py's configuration over phase 5's N_FRAMES
+    frames, frames/s from frame 12 on (bench.py's 12 warm-up frames).
     Its ATE is held to phase 5's pinned point-only run of the same frames
     by tests/test_loop_closure_e2e.py's inequality."""
     slam, launches, fps, ate, per_frame = run_slice(bench_pipeline_config(), poses, frames, "shipping pipeline",
@@ -1676,7 +1786,7 @@ def phase_shipping_circuit(poses, frames, pinned_ate):
 
 
 def phase_mono_slice(cfg, poses, frames):
-    """Phase 12: System.track_monocular on the card, pinned, over 60
+    """Phase 12: System.track_monocular on the card, pinned, over 40
     TUM-size frames: state OK, initialised at the JAX package's frame,
     >= 3 keyframes, >= 1 local BA, > 80 map points, one orb_describe per
     frame and nothing else, and the similarity-aligned ATE no more than
@@ -1701,7 +1811,7 @@ def phase_mono_slice(cfg, poses, frames):
 
 
 def phase_rgbd_slice(cfg, poses, frames):
-    """Phase 13: System.track_rgbd on the card, pinned, over 60 TUM-size
+    """Phase 13: System.track_rgbd on the card, pinned, over 40 TUM-size
     frames of a room: state OK, >= 3 keyframes, >= 1 local BA, one
     orb_describe per frame and nothing else, ATE no more than 10% + 1 cm
     above the JAX package's."""
@@ -1846,13 +1956,15 @@ def phase_multiseq_correctness(poses, frames, pipeline_ate):
     the unbatched track_step; at least half the steps run batched; each
     sequence's ATE is within max(1.25 x, + 2 cm) of phase 11 (a)'s
     (tests/test_loop_closure_e2e.py's inequality).  Its steps are also
-    the scaling run's B = 2 point."""
-    seqs = [frames, frames[::-1]]
-    gts = [poses, poses[::-1]]
+    the scaling run's B = 2 point.  The first MULTISEQ_PAIR_FRAMES frames
+    of each direction."""
+    n = MULTISEQ_PAIR_FRAMES
+    seqs = [frames[:n], frames[::-1][:n]]
+    gts = [poses[:n], poses[::-1][:n]]
     mst, launches, frame_ms, batched, _ = run_multiseq(bench_pipeline_config(), seqs, "multi-sequence B=2",
-                                                       check_steps=(10, 25, 40))
+                                                       check_steps=(5, 15, 25))
     n_batched = sum(batched)
-    check(n_batched >= len(frames) // 2, f"multi-sequence B=2: only {n_batched} of {len(frames)} steps batched")
+    check(n_batched >= n // 2, f"multi-sequence B=2: only {n_batched} of {n} steps batched")
     bound = max(1.25 * pipeline_ate, pipeline_ate + 0.02)
     ates = []
     for b, (t, gt) in enumerate(zip(mst.trackers, gts)):
@@ -1888,7 +2000,7 @@ def phase_multiseq_scaling(frames, rows):
         check(MULTISEQ_STAGGER * (n_seq - 1) + MULTISEQ_FRAMES <= len(frames), "phase 14 (b): too few frames")
         seqs = [frames[MULTISEQ_STAGGER * b: MULTISEQ_STAGGER * b + MULTISEQ_FRAMES] for b in range(n_seq)]
         name = f"multi-sequence scaling B={n_seq}"
-        mst, n, frame_ms, batched, kept[n_seq] = run_multiseq(cfg, seqs, name, keep_step=8)
+        mst, n, frame_ms, batched, kept[n_seq] = run_multiseq(cfg, seqs, name, keep_step=MULTISEQ_KEEP_STEP)
         add_launches(launches, n)
         host_probe(f"after {name}")
         out[n_seq] = print_aggregate(name, n_seq, frame_ms, batched)
@@ -1909,6 +2021,379 @@ def phase_multiseq_scaling(frames, rows):
         torch.cuda.synchronize()
     print("multi-sequence scaling: " + json.dumps(out))
     return launches, out
+
+
+# Phase 15: the shard counts of the production-scale solves on the one
+# card, and the shards of each of the two processes that share it.
+DIST_SHARDS = (1, 4)
+DIST_PROC_SHARDS = 2
+DIST_KEYS = ("R", "t", "cam_fixed", "points", "point_valid", "obs_cam", "obs_lm", "obs_uvur", "obs_oct", "obs_valid")
+
+
+def rotation_gap(Ra, Rb):
+    """Largest angle (rad) between matching rotations of two stacks, from
+    the skew part of Ra Rb^T (the trace's arccos loses ~1e-3 rad to
+    float32 rounding near 0)."""
+    d = np.einsum("cij,ckj->cik", np.asarray(Ra, np.float64), np.asarray(Rb, np.float64))
+    w = np.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0], d[:, 1, 0] - d[:, 0, 1]], -1)
+    return float(np.arcsin(np.clip(np.linalg.norm(w, axis=1) / 2, 0, 1)).max())
+
+
+def pose_contract(a, b, what, z=None, near_points=True):
+    """Hold a result (R, t, points, obs_inlier, chi2; numpy, any of the last
+    three None) to another under tests/test_torch_sharded_ba.py's pose
+    contract: poses within 1e-3 rad and 5e-3 m; points within 1e-4 m in the
+    median and, with near_points, within 1e-3 m nearer than 15 m (all
+    points where z is None); inlier counts within 3; chi2 within 1e-3
+    relative + 1e-2.  Returns (rad, m, median point m, largest point m)."""
+    rad = rotation_gap(a[0], b[0])
+    dt = float(np.abs(a[1] - b[1]).max())
+    check(rad < 1e-3 and dt < 5e-3, f"{what}: poses differ by {rad:.2e} rad and {dt:.2e} m")
+    med = top = None
+    if a[2] is not None:
+        dp = np.linalg.norm(a[2] - b[2], axis=1)
+        near = dp if z is None else dp[z < 15]
+        med, top = float(np.median(dp)), float(dp.max())
+        check(med < 1e-4 and (not near_points or near.max() < 1e-3),
+              f"{what}: points differ by {near.max():.2e} m nearer than 15 m (median {med:.2e})")
+    if a[3] is not None:
+        n_a, n_b = int(a[3].sum()), int(b[3].sum())
+        check(abs(n_a - n_b) <= 3, f"{what}: {n_a} inliers against {n_b}")
+        check(abs(float(a[4]) - float(b[4])) < 1e-3 * abs(float(b[4])) + 1e-2,
+              f"{what}: chi2 {float(a[4]):.3f} against {float(b[4]):.3f}")
+    return rad, dt, med, top
+
+
+def numpy_result(res):
+    return tuple(x.cpu().numpy() for x in res)
+
+
+def phase_dist_parity():
+    """Phase 15 (a): the sharded dense LM (8 iterations) and CG (5 + 10 LM x
+    48 CG) on 4 shards of cuda:0, on multihost_worker's problem (12
+    cameras, 512 landmarks, 3,072 observations, the size of the CPU
+    tests), held to the same call on CPU tensors and to the single-device
+    solver on the card: bundle_adjust_cg under the pose contract, and
+    bundle_adjust within tests/test_distributed_ba.py's 2e-2 m."""
+    import torch
+
+    from orb_line_slam_tpu_torch.backend.global_ba import bundle_adjust_cg
+    from orb_line_slam_tpu_torch.backend.local_ba import bundle_adjust
+    from orb_line_slam_tpu_torch.parallel.multihost import device_mesh
+    from orb_line_slam_tpu_torch.parallel.multihost_worker import SMALL_ITERS, small_problem
+    from orb_line_slam_tpu_torch.parallel.sharded_ba import (
+        distributed_ba,
+        distributed_ba_cg,
+        shard_gba_pack,
+        unshard_result,
+    )
+
+    cam, pack = small_problem()
+    i1, i2, ncg = SMALL_ITERS
+    args, meta = shard_gba_pack(pack, 4)
+    z = pack["points"][:, 2]
+    single = [torch.from_numpy(np.array(pack[k])).cuda() for k in DIST_KEYS]
+
+    def sharded_cg(device):
+        R, t, pts, inl, chi2 = numpy_result(distributed_ba_cg(device_mesh(device, 4), cam, *args, iters1=i1,
+                                                              iters2=i2, cg_iters=ncg))
+        return (R, t) + unshard_result(pts, inl, meta, len(pack["obs_cam"])) + (chi2,)
+
+    card, cpu = sharded_cg("cuda"), sharded_cg("cpu")
+    ref = numpy_result(bundle_adjust_cg(*single, cam, iters1=i1, iters2=i2, cg_iters=ncg))
+    cg_cpu = pose_contract(card, cpu, "sharded CG, card vs CPU", z)
+    cg_single = pose_contract(card, ref, "sharded CG vs bundle_adjust_cg on the card", z)
+    lm = [numpy_result(distributed_ba(device_mesh(d, 4), cam, *args, n_iters=8)) for d in ("cuda", "cpu")]
+    lm = [(R, t, p[: meta["P_tot"]], None, None) for R, t, p in lm]
+    lm_cpu = pose_contract(lm[0], lm[1], "sharded dense LM, card vs CPU", z)
+    dense = numpy_result(bundle_adjust(*single, cam, iters1=8, iters2=0))
+    lm_dt = float(np.abs(lm[0][1] - dense[1]).max())
+    check(lm_dt < 2e-2, f"sharded dense LM vs bundle_adjust on the card: cameras differ by {lm_dt:.2e} m")
+    print(f"distributed BA parity (4 shards on cuda:0, 12 x 512 x 3072): CG vs CPU {cg_cpu[0]:.1e} rad, "
+          f"{cg_cpu[1]:.1e} m, points {cg_cpu[2]:.1e} m median; CG vs bundle_adjust_cg {cg_single[0]:.1e} rad, "
+          f"{cg_single[1]:.1e} m, points {cg_single[2]:.1e} m; inliers {int(card[3].sum())} (single "
+          f"{int(ref[3].sum())}); dense LM vs CPU {lm_cpu[0]:.1e} rad, {lm_cpu[1]:.1e} m; vs bundle_adjust "
+          f"{lm_dt:.1e} m")
+
+
+def dist_solve_row(name, S, host_ms, busy_ms, n_kernels, red, nbytes, agree, err, per=""):
+    print(f"distributed BA {name}, S={S}: {host_ms:.1f} ms per solve (host clock, result fetched), "
+          f"{busy_ms:.1f} ms device busy in {n_kernels} kernels{per}; {red} all-reduces of {nbytes} bytes in all; "
+          f"pose agreement with bundle_adjust_cg {agree[0]:.1e} rad, {agree[1]:.1e} m, points {agree[2]:.1e} m "
+          f"median, {agree[3]:.1e} m at most; median landmark error {err:.4f} m")
+    return {"ms": host_ms, "device_ms": busy_ms, "kernels": n_kernels, "allreduces": red, "allreduced_bytes": nbytes,
+            "pose_agreement_rad": agree[0], "pose_agreement_m": agree[1], "median_landmark_err_m": err}
+
+
+def phase_dist_dryrun():
+    """Phase 15 (b), first: dryrun_multichip (256 x 65,536 x 262,144, 2 LM
+    x 12 CG) at S = 1 and 4 shards on cuda:0, each against
+    bundle_adjust_cg on the same problem."""
+    from orb_line_slam_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    rows, outs = {}, {}
+    for S in DIST_SHARDS:
+        out = dryrun_multichip(S, "cuda")
+        busy, n_k = device_ms(out["solve_mesh"])
+        busy1, n_k1 = device_ms(out["solve_single"])
+        ref = numpy_result(out["solve_single"]())
+        agree = pose_contract((out["R"], out["t"], out["points"], None, None), (ref[0], ref[1], ref[2], None, None),
+                              f"dryrun_multichip S={S} vs bundle_adjust_cg", near_points=False)
+        rows[S] = dist_solve_row("dryrun 256 x 65536 x 262144", S, out["t_mesh_s"] * 1e3, busy, n_k,
+                                 out["reductions"], out["reduced_bytes"], agree, out["median_landmark_err_m"])
+        rows[S].update(single_ms=out["t_single_s"] * 1e3, single_device_ms=busy1, single_kernels=n_k1,
+                       dist_gba_efficiency=out["efficiency"])
+        print(f"dryrun_multichip S={S}: dist_gba_efficiency = t_single / t_mesh = {out['efficiency']:.3f} "
+              f"(bundle_adjust_cg {out['t_single_s'] * 1e3:.1f} ms, {busy1:.1f} ms device busy in {n_k1} kernels): "
+              f"the sharding overhead on one card, not a scaling")
+        outs[S] = out
+    return rows, outs
+
+
+def phase_dist_capacity(cam, single):
+    """Phase 15 (b), second: the loop closer's CG at the default map
+    capacity (phase 9's problem, 512 x 65,536 x 524,288, 12 LM x 64 CG),
+    landmark-sharded at S = 1 and 4 shards on cuda:0, against phase 9's
+    bundle_adjust_cg solve in this run (`single`; the same gauge, camera
+    0).  Host ms of one solve (phase 9's warmed the code, the allocator and
+    the card); device ms and kernels of 2 of the 12 LM iterations under the
+    profiler."""
+    import torch
+
+    from orb_line_slam_tpu_torch.loop.loop_closing import sharded_gauge
+    from orb_line_slam_tpu_torch.parallel.multihost import device_mesh
+    from orb_line_slam_tpu_torch.parallel.sharded_ba import distributed_ba_cg, shard_gba_pack, unshard_result
+
+    pts_true, ref, ms1 = single["pts_true"], single["result"], single["ms"]
+    pack = dict(zip(DIST_KEYS, single["arrs"]))
+    pack["cam_fixed"] = sharded_gauge(pack["cam_fixed"])
+    O = len(pack["obs_cam"])
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    err1 = float(np.median(np.linalg.norm(ref[2] - pts_true, axis=1)))
+    print(f"distributed BA capacity 512 x 65536 x 524288, bundle_adjust_cg (phase 9): {ms1:.1f} ms per solve, "
+          f"{single['device_ms_per_lm_iteration']:.1f} ms device busy in {single['kernels_per_lm_iteration']} kernels "
+          f"per LM iteration; median landmark error {err1:.4f} m")
+    rows = {"single": {k: single[k] for k in ("ms", "device_ms_per_lm_iteration", "kernels_per_lm_iteration")}}
+    for S in DIST_SHARDS:
+        mesh = device_mesh("cuda", S)
+        args, meta = shard_gba_pack(pack, S)
+        margs = [torch.from_numpy(np.array(a)).cuda() for a in args]
+
+        def solve(iters1=12):
+            mesh.reset_counts()
+            return numpy_result(distributed_ba_cg(mesh, cam, *margs, iters1=iters1, iters2=0, cg_iters=64))
+
+        (R, t, pts, inl, chi2), ms = timed(solve)
+        red, nbytes = mesh.n_reductions, mesh.reduced_bytes
+        busy, n_k = device_ms(lambda: solve(2))
+        pts, inl = unshard_result(pts, inl, meta, O)
+        # Landmarks with ~8 observations from random cameras out to 60 m are
+        # weakly held: a change of summation order moves them by up to cm
+        # (two CPU runs of bundle_adjust_cg differ so), so they are held to
+        # the truth as well as the single solver gets them, not to it.
+        agree = pose_contract((R, t, None, inl, chi2), ref, f"capacity CG S={S} vs bundle_adjust_cg")
+        dp = np.linalg.norm(pts - ref[2], axis=1)
+        agree = agree[:2] + (float(np.median(dp)), float(dp.max()))
+        err = float(np.median(np.linalg.norm(pts - pts_true, axis=1)))
+        check(err <= 1.01 * err1 + 1e-4, f"capacity CG S={S}: median landmark error {err:.5f} m against the single "
+                                         f"solver's {err1:.5f} m")
+        rows[S] = dist_solve_row("capacity 512 x 65536 x 524288", S, ms, busy / 2, n_k // 2, red, nbytes, agree, err,
+                                 per=" per LM iteration")
+        rows[S]["dist_gba_efficiency"] = ms1 / ms
+        print(f"capacity CG S={S}: dist_gba_efficiency = t_single / t_mesh = {ms1 / ms:.3f} (sharding overhead on one "
+              f"card, not a scaling)")
+    return rows
+
+
+def run_gba_workers(nprocs, extra, timeout=300):
+    """nprocs multihost_worker processes on one host (a free port on
+    localhost), each waited for and killed if it outlasts timeout; returns
+    each rank's arrays."""
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gba")
+        procs = [subprocess.Popen([sys.executable, "-m", "orb_line_slam_tpu_torch.parallel.multihost_worker", coord,
+                                   str(nprocs), str(pid), out, *extra], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+                 for pid in range(nprocs)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+        except subprocess.TimeoutExpired:
+            fail(f"a multihost_worker of {nprocs} outlasted {timeout} s")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for pid, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"multihost_worker rank {pid} of {nprocs} {extra} failed:\n{log[-3000:]}")
+        return [dict(np.load(f"{out}.rank{pid}.npz")) for pid in range(nprocs)]
+
+
+def phase_dist_processes(dry):
+    """Phase 15 (c) and (d): the dryrun problem through multihost_worker in
+    child processes.  (c) one process, NCCL at world size 1 through
+    multihost.initialize: must equal (b)'s in-process S = 1 solve.  (d) two
+    processes with DIST_PROC_SHARDS shards each on cuda:0, gloo with CUDA
+    tensors (NCCL refuses two ranks on one card): the replicated outputs
+    bit-identical on both ranks, and within the pose contract of (b)'s
+    in-process S = 4 solve."""
+    flags = ["--device", "cuda", "--problem", "dryrun", "--timed-runs", "2"]
+    (nccl,) = run_gba_workers(1, flags + ["--local-shards", "1", "--backend", "nccl"])
+    check(np.array_equal(nccl["R"], dry[1]["R"]) and np.array_equal(nccl["t"], dry[1]["t"]),
+          f"NCCL world size 1 vs the in-process S=1 solve: cameras differ by "
+          f"{float(np.abs(nccl['t'] - dry[1]['t']).max()):.2e} m")
+    check(int(nccl["collectives"]) == int(nccl["reductions"]) > 0, "NCCL world size 1: no all_reduce was issued")
+    nccl_ms = float(np.median(nccl["solve_s"][1:])) * 1e3
+    print(f"distributed BA NCCL world size 1 (dryrun problem, one shard): equal to the in-process S=1 solve; "
+          f"{nccl_ms:.1f} ms per solve, {int(nccl['collectives'])} all_reduce calls per solve")
+    ranks = run_gba_workers(2, flags + ["--local-shards", str(DIST_PROC_SHARDS), "--backend", "gloo"])
+    n = 2 * DIST_PROC_SHARDS
+    check(all(int(r["n_shards"]) == n for r in ranks), "two processes: wrong shard count")
+    for k in ("R", "t", "chi2"):
+        check(np.array_equal(ranks[0][k], ranks[1][k]), f"two processes: {k} differs between the ranks")
+    pts = np.concatenate([r["points_local"] for r in ranks])
+    agree = pose_contract((ranks[0]["R"], ranks[0]["t"], pts, None, None),
+                          (dry[n]["R"], dry[n]["t"], dry[n]["points"], None, None),
+                          f"two processes x {DIST_PROC_SHARDS} shards vs in-process S={n}")
+    two_ms = [float(np.median(r["solve_s"][1:])) * 1e3 for r in ranks]
+    print(f"distributed BA two processes x {DIST_PROC_SHARDS} shards on one card (gloo, CUDA tensors; dryrun "
+          f"problem): replicated outputs bit-identical on both ranks; vs the in-process S={n} solve {agree[0]:.1e} "
+          f"rad, {agree[1]:.1e} m, points {agree[2]:.1e} m median; {two_ms[0]:.1f} / {two_ms[1]:.1f} ms per solve "
+          f"(rank 0 / 1), {int(ranks[0]['collectives'])} all_reduce calls per solve")
+    return {"nccl_world1_ms": nccl_ms, "dist_gba_2proc_ms_per_solve": two_ms, "pose_agreement_2proc_m": agree[1]}
+
+
+def phase_dist_route(slam):
+    """Phase 15 (e): the LoopCloser's own route to the sharded solver, on
+    copies of phase 10's final map under closers at the default map
+    capacity (512 keyframes, 65,536 points: past 256 MB of dense coupling,
+    so _pack_gba takes the CG) with a 4-shard cuda:0 mesh.  _pack_gba must
+    choose "sharded_cg"; the pinned run_global_ba, and dispatch_global_ba
+    solved on the global-BA worker's stream then poll_global_ba(force=True)
+    with gba_async, are each held to bundle_adjust_cg on the same pack and
+    gauge: inlier flags equal on >= 99% of the rows, the poses each closer
+    wrote to its map within the contract."""
+    import torch
+
+    from orb_line_slam_tpu_torch.backend.global_ba import bundle_adjust_cg
+    from orb_line_slam_tpu_torch.config import MapConfig
+    from orb_line_slam_tpu_torch.convert import map_store_from_numpy
+    from orb_line_slam_tpu_torch.loop.loop_closing import LoopCloser
+    from orb_line_slam_tpu_torch.parallel.multihost import device_mesh
+
+    src = slam.loop_closer
+    default = MapConfig()
+    cfg = dataclasses.replace(src.cfg, map=dataclasses.replace(src.cfg.map, max_keyframes=default.max_keyframes,
+                                                                max_points=default.max_points))
+
+    def closer():
+        lc = LoopCloser(cfg, map_store_from_numpy(slam.map), src.voc, device="cuda", mesh=device_mesh("cuda", 4))
+        seen = {}
+        solve, apply = lc._solve_gba, lc._apply_gba
+
+        def solve_seen(problem):
+            seen["thread"] = threading.current_thread().name
+            seen["stream"] = torch.cuda.current_stream().cuda_stream
+            return solve(problem)
+
+        def apply_seen(pack, res, snap_valid):
+            seen["res"] = res
+            return apply(pack, res, snap_valid)
+
+        lc._solve_gba, lc._apply_gba = solve_seen, apply_seen
+        return lc, seen
+
+    pinned, seen_p = closer()
+    pack, problem = pinned._pack_gba(12, 0)
+    check(problem["solver"] == pinned.last_gba_solver == "sharded_cg",
+          f"route: _pack_gba chose {problem['solver']} on a 4-shard mesh at the default capacity")
+    C = len(pack["cam_ids"])
+    ref = numpy_result(bundle_adjust_cg(*(torch.from_numpy(np.array(a)).cuda() for a in problem["args"]),
+                                        cfg.camera, cfg.orb.scale_factor, iters1=12, iters2=0,
+                                        cg_iters=problem["cg_iters"]))
+    t0 = time.perf_counter()
+    pinned.run_global_ba(12, 0)
+    ms_pinned = (time.perf_counter() - t0) * 1e3
+    shipped, seen_s = closer()
+    shipped.gba_async = True
+    t0 = time.perf_counter()
+    shipped.dispatch_global_ba(12, 0)
+    try:
+        check(shipped.poll_global_ba(force=True), "route: the asynchronous global BA was not applied")
+    finally:
+        shipped.stop()
+    ms_async = (time.perf_counter() - t0) * 1e3
+    check(seen_s["thread"].startswith("global-ba") and seen_s["stream"] != seen_p["stream"],
+          f"route: the asynchronous solve ran on {seen_s['thread']}, not on the global-BA worker's stream")
+    out = {}
+    for name, lc, seen in (("run_global_ba", pinned, seen_p), ("dispatch_global_ba", shipped, seen_s)):
+        check(lc.last_gba_solver == "sharded_cg" and lc.n_gba_applied == 1,
+              f"route, {name}: {lc.n_gba_applied} global BA applied as {lc.last_gba_solver}")
+        res = seen["res"]
+        same = float((res.obs_inlier == ref[3]).mean())
+        check(same >= 0.99, f"route, {name}: inlier flags equal on only {same:.4f} of the rows")
+        written = (lc.map.kf_R[pack["cam_ids"]], lc.map.kf_t[pack["cam_ids"]])
+        agree = pose_contract(written + (None, None, None), ref, f"route, {name}: map poses vs bundle_adjust_cg")
+        dp = float(np.median(np.linalg.norm(res.points - ref[2], axis=1)))
+        out[name] = {"inlier_agreement": same, "pose_agreement_m": agree[1]}
+        print(f"distributed BA route, {name} on phase 10's map ({C} keyframes, {len(pack['lm_ids'])} landmarks, "
+              f"{int(pack['n_obs'])} observations; default capacity, 4 shards on cuda:0; solved on "
+              f"{seen['thread']}): _pack_gba chose sharded_cg, inlier flags equal on {same:.4f} of the rows, map "
+              f"poses within {agree[0]:.1e} rad and {agree[1]:.1e} m of bundle_adjust_cg, landmarks {dp:.1e} m "
+              f"median; {ms_pinned if lc is pinned else ms_async:.1f} ms")
+    return {"route_inlier_agreement": min(r["inlier_agreement"] for r in out.values()),
+            "route_pose_agreement_m": max(r["pose_agreement_m"] for r in out.values()),
+            "route_ms": {"run_global_ba": ms_pinned, "dispatch_global_ba": ms_async}}
+
+
+def phase_distributed(cam, gba_capacity, loop_slam):
+    """Phase 15, the distributed global BA (BASELINE config #5): (a) to (e).
+    None of the three hand-written kernels is on this path: their counts
+    are set to 0 before and must read 0 after."""
+    reset_launches()
+    phase_dist_parity()
+    dry_rows, dry = phase_dist_dryrun()
+    cap_rows = phase_dist_capacity(cam, gba_capacity)
+    procs = phase_dist_processes(dry)
+    route = phase_dist_route(loop_slam)
+    launches = read_launches()
+    check(not any(launches.values()), f"the distributed BA launched a hand-written kernel: {launches}")
+    out = {
+        "dist_gba_ms_per_solve": {"dryrun": {S: r["ms"] for S, r in dry_rows.items()},
+                                  "capacity": {S: r["ms"] for S, r in cap_rows.items() if S != "single"}},
+        "dist_gba_single_ms_per_solve": {"dryrun": {S: r["single_ms"] for S, r in dry_rows.items()},
+                                         "capacity": cap_rows["single"]["ms"]},
+        "dist_gba_efficiency": {"dryrun": {S: r["dist_gba_efficiency"] for S, r in dry_rows.items()},
+                                "capacity": {S: cap_rows[S]["dist_gba_efficiency"] for S in DIST_SHARDS}},
+        "dist_gba_allreduces_per_solve": {"dryrun": {S: r["allreduces"] for S, r in dry_rows.items()},
+                                          "capacity": {S: cap_rows[S]["allreduces"] for S in DIST_SHARDS}},
+        "dist_gba_allreduced_bytes_per_solve": {"dryrun": {S: r["allreduced_bytes"] for S, r in dry_rows.items()},
+                                                "capacity": {S: cap_rows[S]["allreduced_bytes"] for S in DIST_SHARDS}},
+        "dist_gba_pose_agreement_m": {"dryrun": {S: r["pose_agreement_m"] for S, r in dry_rows.items()},
+                                      "capacity": {S: cap_rows[S]["pose_agreement_m"] for S in DIST_SHARDS},
+                                      "two_processes": procs["pose_agreement_2proc_m"],
+                                      "route": route["route_pose_agreement_m"]},
+        "dist_gba_2proc_ms_per_solve": procs["dist_gba_2proc_ms_per_solve"],
+        "dist_gba_nccl_world1_ms_per_solve": procs["nccl_world1_ms"],
+        "dist_gba_route_inlier_agreement": route["route_inlier_agreement"],
+        "dist_gba_route_ms": route["route_ms"],
+        "dist_gba_rows": {"dryrun": dry_rows, "capacity": cap_rows},
+    }
+    print("distributed BA: " + json.dumps(out))
+    return out
 
 
 # (module, function, range name): the stages a profile range is opened
@@ -2028,6 +2513,18 @@ def main():
     def done(phase):
         print(f"[{time.perf_counter() - t_start:6.1f} s] {phase} done", flush=True)
 
+    # Every sequence's frames, rendered by forked workers while this
+    # process has no thread and has not touched the card.
+    cfg, lcfg, ccfg, tcfg = kitti_config(), euroc_config(), loop_config(), tum_config()
+    jobs = [sequence_job(cfg, N_FRAMES), *tum_jobs(tcfg, N_FRAMES),
+            sequence_job(lcfg, N_FRAMES, LINE_SCENE, LINE_STEP), loop_job(ccfg)]
+    check(threading.active_count() == 1, "a thread runs before the render workers are forked")
+    n_proc = min(8, os.cpu_count() or 1)
+    frames, mframes, rframes, lframes, cframes = render_jobs(jobs, n_proc)
+    poses, mposes, rposes, lposes, cposes = (job[1] for job in jobs)
+    print(f"rendered {len(frames)} KITTI-size stereo pairs, {len(mframes)} TUM-size mono images and {len(rframes)} "
+          f"RGB-D pairs, {len(lframes)} EuRoC-size stereo pairs with lines and {len(cframes)} stereo pairs of the loop "
+          f"circuit in {time.perf_counter() - t_start:.1f} s ({n_proc} processes; host, set-up)")
     phase_device()
     import orb_line_slam_tpu_torch  # noqa: F401  (sets the fp32 policy)
 
@@ -2035,21 +2532,13 @@ def main():
           "TF32 is enabled")
     phase_build()
     metrics, launches = {}, {}
-    cfg, lcfg, ccfg, tcfg = kitti_config(), euroc_config(), loop_config(), tum_config()
     cells = (("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg))
     kern = {"patch_tiles": phase_kernel(cells)}
     kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells, (("TUM cell", tcfg),))
     done("phases 1-3")
-    t0 = time.perf_counter()
-    poses, frames = render_sequence(cfg, N_FRAMES)
-    print(f"rendered {len(frames)} stereo pairs in {time.perf_counter() - t0:.1f} s (host, set-up)")
     metrics["stereo_frontend_fps"] = phase_frame(cfg, frames[0])
     phase_stereo_match_kernel_vs_plain(cfg, frames[0])
     add_launches(launches, phase_single_image(cfg, frames))
-    t0 = time.perf_counter()
-    mposes, mframes, rposes, rframes = render_tum_sequences(tcfg, N_FRAMES)
-    print(f"rendered {N_FRAMES} TUM-size mono images and {N_FRAMES} RGB-D pairs in {time.perf_counter() - t0:.1f} s "
-          f"(host, set-up)")
     tum_ms = phase_mono_rgbd_frames(tcfg, *rframes[0])
     metrics["mono_frontend_ms"], metrics["rgbd_frontend_ms"] = tum_ms["mono"], tum_ms["rgbd"]
     metrics["local_ba_iter_ms"] = phase_bench_ba(cfg)
@@ -2057,9 +2546,6 @@ def main():
         phase_slice(cfg, poses, frames)
     add_launches(launches, n)
     done("phases 4-5")
-    t0 = time.perf_counter()
-    lposes, lframes = render_sequence(lcfg, N_FRAMES, LINE_SCENE, LINE_STEP)
-    print(f"rendered {N_FRAMES} EuRoC-size stereo pairs with lines in {time.perf_counter() - t0:.1f} s (host, set-up)")
     metrics["line_frontend_ms"] = phase_line_frame(lcfg, lframes[0])
     n, metrics["lines_pipeline_fps"], metrics["joint_ba_ms_per_solve"], metrics["ate_rmse_lines_m"] = \
         phase_line_slice(lcfg, lposes, lframes)
@@ -2071,13 +2557,10 @@ def main():
     metrics["bow_descent_ms"] = phase_loop_words(frame)
     metrics["sim3_ransac_ms"], metrics["sim3_refine_ms"] = phase_loop_sim3(ccfg.camera)
     metrics["pose_graph_ms_per_solve"] = phase_loop_pose_graph()
-    metrics["gba_cg_ms_per_solve"] = phase_loop_gba_cg(cfg.camera)
+    metrics["gba_cg_ms_per_solve"], gba_capacity = phase_loop_gba_cg(cfg.camera)
     host_probe("after the loop components")
     done("phase 9")
-    t0 = time.perf_counter()
-    cposes, cframes = render_loop_sequence(ccfg)
-    print(f"rendered {len(cframes)} stereo pairs of the loop circuit in {time.perf_counter() - t0:.1f} s (host, set-up)")
-    n, metrics["loop_pipeline_fps"], metrics["ate_rmse_loop_m"] = phase_loop_slice(ccfg, cposes, cframes)
+    n, metrics["loop_pipeline_fps"], metrics["ate_rmse_loop_m"], loop_slam = phase_loop_slice(ccfg, cposes, cframes)
     add_launches(launches, n)
     done("phase 10")
     n, metrics["full_pipeline_fps"], metrics["full_pipeline_frame_host_ms"], metrics["ate_rmse_pipeline_m"] = \
@@ -2101,6 +2584,8 @@ def main():
     metrics["multiseq_aggregate_fps"] = {b: row["multiseq_aggregate_fps"] for b, row in scaling.items()}
     metrics["multiseq_batched_step_host_ms"] = {b: row["batched_step_host_ms"] for b, row in scaling.items()}
     done("phase 14")
+    metrics["distributed_ba"] = phase_distributed(cfg.camera, gba_capacity, loop_slam)
+    done("phase 15")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
     # launches: orb_describe and stereo_sad over the slices' stereo frames

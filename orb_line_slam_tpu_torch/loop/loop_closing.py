@@ -41,8 +41,16 @@ landmark and observation counts.  Masked padding does not change a
 solve.  Which global solver runs is still decided from the configured
 capacity, as in the JAX package, so both take the same branch.
 
-Not ported: the jit warmups and the landmark-sharded multi-device global
-BA.
+Multi-device global BA (JAX ``_dispatch_gba_sharded``, 1182-1203, and
+``_ShardedGBAResult``, 42-68): the closer holds a ``ShardMesh``
+(``parallel/multihost.py``; by default ``global_mesh()`` over its device
+type, which on one card or on the CPU has one shard).  When the global BA
+takes the CG solver and the mesh has more than one shard, the solve runs
+landmark-sharded over the mesh (``parallel/sharded_ba.py``), as the JAX
+package routes it when ``jax.device_count() > 1``; its result is mapped
+back to pack order.  A one-shard mesh never routes.
+
+Not ported: the jit warmups.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import torch
 
 from ..backend.global_ba import bundle_adjust_cg
 from ..backend.line_ba import bundle_adjust_pl
-from ..backend.local_ba import bundle_adjust
+from ..backend.local_ba import BAResult, bundle_adjust
 from ..backend.pose_graph import optimize_pose_graph
 from ..backend.sim3_opt import optimize_sim3
 from ..backend.sim3_solver import solve_sim3_ransac
@@ -73,6 +81,8 @@ from ..geometry.host import (
     nsim3_inverse,
 )
 from ..matching.point_matcher import match_descriptors, search_by_sim3_dir
+from ..parallel import multihost
+from ..parallel.sharded_ba import distributed_ba_cg, shard_gba_pack, unshard_result
 from ..slam_map.fuse import fuse_into_keyframe
 from ..slam_map.keyframe_db import KeyFrameDatabase
 from ..slam_map.map_store import MapStore
@@ -121,12 +131,24 @@ class LoopEdge:
     gen_b: int = 0
 
 
+def sharded_gauge(cam_fixed: np.ndarray) -> np.ndarray:
+    """The gauge of the sharded global BA (JAX ``loop_closing.py:1197-1199``):
+    the first fixed camera of the pack, or camera 0 if none is, held
+    fixed.  ``fix_first`` would fix camera 0 in every case."""
+    fixed = np.asarray(cam_fixed, bool).copy()
+    fixed[0 if not fixed.any() else int(np.argmax(fixed))] = True
+    return fixed
+
+
 class LoopCloser:
-    def __init__(self, cfg: SlamConfig, store: MapStore, voc: Vocabulary, *, device):
+    def __init__(self, cfg: SlamConfig, store: MapStore, voc: Vocabulary, *, device, mesh=None):
         self.cfg = cfg
         self.map = store
         self.voc = voc
         self.device = torch.device(device)
+        # The shard mesh of the global BA: a CG-sized solve runs sharded
+        # over it when it has more than one shard.
+        self.mesh = mesh if mesh is not None else multihost.global_mesh(self.device.type)
         self.db = KeyFrameDatabase(voc)
         self.consistent_groups: list[tuple[set[int], int]] = []
         self.loop_edges: list[LoopEdge] = []
@@ -154,7 +176,7 @@ class LoopCloser:
         self.timing = StageTimer()
         self.closure_ms: list[dict] = []
         self.n_gba_applied = 0
-        self.last_gba_solver = None   # "dense", "dense+lines" or "cg"
+        self.last_gba_solver = None   # "dense", "dense+lines", "cg" or "sharded_cg"
         # Asynchronous global BA (the reference's detached global-BA
         # thread): (pack, future, kf_valid at pack time) of the one solve
         # whose result will be applied; superseded solves' futures are
@@ -949,9 +971,10 @@ class LoopCloser:
         [P, C, 6, 3] coupling tensor would exceed 256 MB at the
         configured capacity, matrix-free CG on the Schur complement
         (backend/global_ba.py) takes over, so the full map is optimized
-        with no landmark or observation truncation.  The problem is
-        packed at capacity (which fixes what is selected) and trimmed to
-        the live counts for the device."""
+        with no landmark or observation truncation; on a mesh of more
+        than one shard the CG runs landmark-sharded ("sharded_cg").  The
+        problem is packed at capacity (which fixes what is selected) and
+        trimmed to the live counts for the device."""
         store = self.map
         Kn = store._next_kf
         ids = np.nonzero(store.kf_valid[:Kn])[0]
@@ -965,9 +988,10 @@ class LoopCloser:
         pack = store.pack_local_ba(
             int(ids[-1]), max_cams=n_cams, max_points=n_pts, max_obs=n_obs, all_free=True,
         )
-        C, P, O = len(pack["cam_ids"]), max(len(pack["lm_ids"]), 1), max(int(pack["n_obs"]), 1)
-        cut = {"R": C, "t": C, "cam_fixed": C, "points": P, "point_valid": P}
-        problem = {"iters": (iters1, iters2), "args": tuple(pack[k][: cut.get(k, O)] for k in _POINT_KEYS)}
+        if use_cg and self.mesh.n_shards > 1:
+            return pack, self._sharded_problem(pack, iters1, iters2)
+        C = len(pack["cam_ids"])
+        problem = {"iters": (iters1, iters2), "args": self._live_args(pack)}
         if use_cg:
             self.last_gba_solver = problem["solver"] = "cg"
             problem["cg_iters"] = min(6 * n_cams, 64)
@@ -1002,15 +1026,52 @@ class LoopCloser:
         self.last_gba_solver = problem["solver"] = "dense"
         return pack, problem
 
+    @staticmethod
+    def _live_args(pack):
+        """The point solvers' inputs of a capacity pack, trimmed to its
+        live keyframe, landmark and observation counts."""
+        C, P, O = len(pack["cam_ids"]), max(len(pack["lm_ids"]), 1), max(int(pack["n_obs"]), 1)
+        cut = {"R": C, "t": C, "cam_fixed": C, "points": P, "point_valid": P}
+        return tuple(pack[k][: cut.get(k, O)] for k in _POINT_KEYS)
+
+    def _sharded_problem(self, pack, iters1: int, iters2: int):
+        """The landmark-sharded CG problem of a capacity pack: live counts,
+        the sharded solver's gauge (``sharded_gauge`` of the capacity
+        pack's fixed flags) and its CG iterations, min(6 C, 64) at the
+        pack's camera capacity."""
+        args = list(self._live_args(pack))
+        args[2] = sharded_gauge(pack["cam_fixed"])[: len(pack["cam_ids"])]
+        self.last_gba_solver = "sharded_cg"
+        return {"solver": "sharded_cg", "iters": (iters1, iters2), "args": tuple(args),
+                "cg_iters": min(6 * pack["R"].shape[0], 64)}
+
+    def _dispatch_gba_sharded(self, pack, iters1: int, iters2: int):
+        """Solve a capacity pack's global BA landmark-sharded over the
+        closer's mesh, here; returns the host result in pack order (live
+        counts)."""
+        return self._solve_gba(self._sharded_problem(pack, iters1, iters2))[0]
+
+    def _solve_sharded(self, args, iters1: int, iters2: int, cg_iters: int) -> BAResult:
+        """``sharded_ba.distributed_ba_cg`` over the mesh, its result mapped
+        back to the order of ``args`` (the live pack)."""
+        sharded, meta = shard_gba_pack(dict(zip(_POINT_KEYS, args)), self.mesh.n_shards)
+        R, t, pts, inl, chi2 = distributed_ba_cg(
+            self.mesh, self.cfg.camera, *sharded, scale_factor=self.cfg.orb.scale_factor,
+            iters1=iters1, iters2=iters2, cg_iters=cg_iters)
+        points, obs_inlier = unshard_result(pts.cpu().numpy(), inl.cpu().numpy(), meta, len(args[5]))
+        return BAResult(R.cpu().numpy(), t.cpu().numpy(), points, obs_inlier, chi2.cpu().numpy())
+
     def _solve_gba(self, problem):
         """Upload, solve and fetch a packed full-map BA problem, on the
         calling thread (the global-BA worker when asynchronous).  Returns
         (host result, seconds)."""
         t0 = time.perf_counter()
+        iters1, iters2 = problem["iters"]
+        if problem["solver"] == "sharded_cg":
+            return self._solve_sharded(problem["args"], iters1, iters2, problem["cg_iters"]), time.perf_counter() - t0
         T = self._t
         args = tuple(T(a) for a in problem["args"])
         cam, sf = self.cfg.camera, self.cfg.orb.scale_factor
-        iters1, iters2 = problem["iters"]
         if problem["solver"] == "cg":
             res = bundle_adjust_cg(*args, cam, sf, iters1=iters1, iters2=iters2, fix_first=True,
                                    cg_iters=problem["cg_iters"])

@@ -328,3 +328,55 @@ def test_worker_runs_its_jobs_on_its_own_stream_after_the_submitters_work(cuda):
     finally:
         w.stop()
     assert not w.is_alive()
+
+
+def _small_gba(n_shards, device):
+    """multihost_worker's problem (12 cameras, 512 landmarks, 3,072
+    observations, 5 + 10 LM x 48 CG) solved on n_shards slots of device."""
+    from orb_line_slam_tpu_torch.parallel.multihost import device_mesh
+    from orb_line_slam_tpu_torch.parallel.multihost_worker import SMALL_ITERS, small_problem
+    from orb_line_slam_tpu_torch.parallel.sharded_ba import distributed_ba_cg, shard_gba_pack, unshard_result
+
+    cam, pack = small_problem()
+    args, meta = shard_gba_pack(pack, n_shards)
+    i1, i2, ncg = SMALL_ITERS
+    R, t, pts, inl, chi2 = (x.cpu().numpy() for x in distributed_ba_cg(
+        device_mesh(device, n_shards), cam, *args, iters1=i1, iters2=i2, cg_iters=ncg))
+    return (R, t) + unshard_result(pts, inl, meta, len(pack["obs_cam"])) + (chi2,)
+
+
+def _within_pose_contract(a, b):
+    d = np.einsum("cij,ckj->cik", a[0].astype(np.float64), b[0].astype(np.float64))
+    w = np.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0], d[:, 1, 0] - d[:, 0, 1]], -1)
+    angle = np.arcsin(np.clip(np.linalg.norm(w, axis=1) / 2, 0, 1)).max()     # the skew part: exact near 0
+    assert angle < 1e-3 and np.abs(a[1] - b[1]).max() < 5e-3
+    assert np.median(np.linalg.norm(a[2] - b[2], axis=1)) < 1e-4
+    assert abs(int(a[3].sum()) - int(b[3].sum())) <= 3
+    assert abs(float(a[4]) - float(b[4])) < 1e-3 * abs(float(b[4])) + 1e-2
+
+
+def test_sharded_gba_on_card_matches_single_solver_and_cpu(cuda):
+    """Four shards on cuda:0 against bundle_adjust_cg on the card (the same
+    gauge) and against the same sharded call on CPU tensors."""
+    from orb_line_slam_tpu_torch.backend.global_ba import bundle_adjust_cg
+    from orb_line_slam_tpu_torch.parallel.multihost_worker import SMALL_ITERS, small_problem
+
+    cam, pack = small_problem()
+    i1, i2, ncg = SMALL_ITERS
+    keys = ("R", "t", "cam_fixed", "points", "point_valid", "obs_cam", "obs_lm", "obs_uvur", "obs_oct", "obs_valid")
+    ref = bundle_adjust_cg(*(torch.from_numpy(np.array(pack[k])).to(cuda) for k in keys), cam, iters1=i1,
+                           iters2=i2, cg_iters=ncg)
+    card = _small_gba(4, cuda)
+    _within_pose_contract(card, tuple(x.cpu().numpy() for x in ref))
+    _within_pose_contract(card, _small_gba(4, "cpu"))
+
+
+def test_sharded_gba_on_card_is_reproducible(cuda):
+    """One and four shards on cuda:0: two calls give bit-identical
+    replicated outputs, and the two shard counts agree within the pose
+    contract."""
+    runs = {n: (_small_gba(n, cuda), _small_gba(n, cuda)) for n in (1, 4)}
+    for a, b in runs.values():
+        for x, y in zip((a[0], a[1], a[4]), (b[0], b[1], b[4])):
+            assert np.array_equal(x, y)
+    _within_pose_contract(runs[4][0], runs[1][0])

@@ -74,8 +74,8 @@ def test_slice_matches_jax_system():
 
 
 def test_package_never_imports_jax(tmp_path):
-    """The port imports and tracks frames, lines on, with `import jax`
-    made to fail."""
+    """The port imports (the distributed BA's modules included) and tracks
+    frames, lines on, with `import jax` made to fail."""
     script = textwrap.dedent(f"""
         import sys
         class _Block:
@@ -92,6 +92,10 @@ def test_package_never_imports_jax(tmp_path):
         from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene
         from orb_line_slam_tpu_torch.pipeline.system import System
         import orb_line_slam_tpu_torch.convert
+        import orb_line_slam_tpu_torch.parallel.dryrun
+        import orb_line_slam_tpu_torch.parallel.multihost
+        import orb_line_slam_tpu_torch.parallel.multihost_worker
+        import orb_line_slam_tpu_torch.parallel.sharded_ba
         cam = CameraIntrinsics(fx=400.0, fy=400.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
         cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=512, n_levels=3), lines=LineConfig(n_lines=32))
         scene = SyntheticScene(cam, n_points=300, n_lines=30, seed=4, extent=((-14, 14), (-6, 6), (6, 60)))
