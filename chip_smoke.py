@@ -15,7 +15,9 @@ RGB-D tracking at TUM fr1's size through ``System.track_monocular`` and
 ``MultiSequenceTracker.process_stereo`` (one batched step per time step,
 each sequence a System), and the distributed global BA (landmark-sharded
 over a shard mesh, in one process and across processes through
-``torch.distributed``, and the LoopCloser's route to it), after building
+``torch.distributed``, and the LoopCloser's route to it), and
+eval/endurance.py's run (a sensor dropout recovered by relocalization,
+keyframe culling under capacity pressure), after building
 the hand-written CUDA kernels from the sources in this checkout and
 holding each to its plain PyTorch version.  Run from the root of a
 checkout:
@@ -148,6 +150,24 @@ Phases (each fails loudly, and the script exits non-zero):
      worker's stream) + poll_global_ba are held to bundle_adjust_cg on
      the same pack (inlier flags on >= 99% of the rows, the poses written
      to the map).  None of the three kernels is launched on this path.
+ 16. the endurance run and the host modules: (a)
+     eval/endurance.py::run_endurance(n_frames=120, laps=0.45,
+     loss_at=0.5, loss_frames=4, lines=True, shipping=True,
+     fps_window=30) on the card (the loop circuit's camera and scene,
+     96 keyframe slots, a sensor dropout of four noise frames): the
+     noise frames LOST and <= loss_frames + 6 frames lost in all,
+     tracking recovered, >= 1 Tracker._relocalize that succeeds from
+     keyframe-database candidates (the method wrapped here), one
+     orb_describe and one stereo_sad per frame (noise frames included)
+     and no patch tile, ATE within max(1.25 x, + 2 cm) of the JAX
+     package's pinned run of the same call on the CPU; prints the
+     returned dict, the fps windows, the device's peak allocated memory
+     and the tracking thread's host ms per frame; (b) save_map /
+     load_map of phase 10's final map, every array and scalar equal;
+     (c) make libnative in native/ (host code): if it builds, a
+     synthesized 10^4-word vocabulary parsed natively and in Python,
+     equal, with both host times; if not, the compiler's reason (the
+     Python parse is the reference's own path, so the run goes on).
 Phases 5, 7, 8, 10, 12 and 13 pin the schedule the JAX references were
 computed on (System(..., async_loop=False), gba_async = False,
 tracker.async_mapping = False).  Every slice run prints the tracking thread's per-frame host ms (p50,
@@ -162,8 +182,10 @@ missing; such a window is taken again (a bounded number of times, then
 the run fails), and a line near the end says how many were.  All five sequences are rendered once, before phase 4, by worker
 processes (the frames equal those of rendering each in order).  The line
 before the last lists the three kernels, with their launches over
-phases 4, 5, 7, 10, 11, 12, 13 and 14; the last line is the JSON device
-record.
+phases 4, 5, 7, 10, 11, 12, 13, 14 and 16; the last line is the JSON
+device record.  ``python3 chip_smoke.py --endurance-long`` runs
+bench.py:92's run_endurance(n_frames=1500, shipping=True) and the same
+run pinned instead (about 13 minutes each on the card).
 Imports nothing of JAX.
 """
 
@@ -259,6 +281,20 @@ MULTISEQ_BATCHES = (1, 4, 8)      # B = 2 is phase 14 (a)'s run
 MULTISEQ_FRAMES = 10
 MULTISEQ_KEEP_STEP = 6            # the batched step profiled alone
 MULTISEQ_STAGGER = 3
+# Phase 16: eval/endurance.py::run_endurance on the card at 0.188 m per
+# frame (2 pi 8 m x 0.45 laps / 120), inside the 0.275 m of the JAX
+# package's own 420-frame test (tests/test_endurance.py:19); noise frames
+# 60-63.  ATE (m) of the JAX package's run_endurance on the same call with
+# shipping=False (its own renderer), on the CPU with JAX_PLATFORMS=cpu: 4
+# frames lost, recovered_at 66 (the port's 64: JAX's tracking_state lags
+# its pipeline_depth of 2), 31 keyframes created, 28 alive, 2910 points, no
+# loop closed.  The slow test
+# tests/test_torch_endurance.py::test_jax_endurance_reference recomputes it.
+ENDURANCE = dict(n_frames=120, laps=0.45, loss_at=0.5, loss_frames=4, lines=True, fps_window=30)
+JAX_CPU_REFERENCE_ATE_ENDURANCE_M = 0.0563
+# bench.py:92's long run (run_endurance's defaults: 8 m radius, 2.3 laps),
+# outside the smoke (chip_smoke.py --endurance-long).
+ENDURANCE_LONG = dict(n_frames=1500, radius=8.0, laps=2.3)
 
 
 def fail(msg: str):
@@ -2396,6 +2432,245 @@ def phase_distributed(cam, gba_capacity, loop_slam):
     return out
 
 
+def run_endurance_on_card(name, progress_every=0, keep_frame=None, **kwargs):
+    """eval/endurance.py::run_endurance on the card, every kernel's launch
+    count set to 0 just before and read just after, with three probes
+    wrapped around the System for the run's length: track_stereo timed per
+    frame (the tracking thread's stream synchronised, as every slice run)
+    with the state after it, System._reloc_candidates (the keyframe
+    database's BoW candidates) and Tracker._relocalize (its result, its
+    inliers, the keyframe it found and the database candidates it was
+    given).  With ``keep_frame`` = i, frame i's Frame and the System are
+    kept.  Returns the run's dict and a record: launches, per_frame (host
+    ms p50, p90, max), states, relocs, peak_mb (the device's peak
+    allocated), kept ((System, Frame) or None) and centres (the tracked
+    camera centre after each frame)."""
+    import torch
+
+    from orb_line_slam_tpu_torch.eval.endurance import run_endurance
+    from orb_line_slam_tpu_torch.pipeline.system import System
+    from orb_line_slam_tpu_torch.pipeline.tracking import Tracker
+
+    frame_ms, states, relocs, db, kept, centres = [], [], [], [], [], []
+    saved = System.track_stereo, System._reloc_candidates, Tracker._relocalize, Tracker._consume
+    t_start = time.perf_counter()
+
+    def track_stereo(self, *a, **k):
+        if len(states) == keep_frame:
+            kept.append(self)
+        t0 = time.perf_counter()
+        out = saved[0](self, *a, **k)
+        torch.cuda.current_stream().synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        states.append(self.tracking_state())
+        centres.append(-self.tracker.R.T @ self.tracker.t)
+        if progress_every and len(states) % progress_every == 0:
+            print(f"{name}: {len(states)} frames in {time.perf_counter() - t_start:.1f} s, state {states[-1]}, "
+                  f"{int(self.map.n_keyframes())} keyframes, {self.n_loops_closed} loops", flush=True)
+        return out
+
+    def reloc_candidates(self, frame):
+        cand = saved[1](self, frame)
+        db.append([int(c) for c in cand])
+        return cand
+
+    def relocalize(self, frame):
+        db.clear()
+        ok, assoc, n_inl = saved[2](self, frame)
+        relocs.append({"frame": len(states), "ok": bool(ok), "inliers": int(n_inl),
+                       "kf": int(self.ref_kf) if ok else None, "db_candidates": db[0] if db else None})
+        return ok, assoc, n_inl
+
+    def consume(self, e):
+        if len(states) == keep_frame:
+            kept.append(e.frame)
+        return saved[3](self, e)
+
+    System.track_stereo, System._reloc_candidates, Tracker._relocalize, Tracker._consume = \
+        track_stereo, reloc_candidates, relocalize, consume
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        m = run_endurance(device="cuda", **kwargs)
+    finally:
+        System.track_stereo, System._reloc_candidates, Tracker._relocalize, Tracker._consume = saved
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    per_frame = {"p50": float(np.percentile(frame_ms, 50)), "p90": float(np.percentile(frame_ms, 90)),
+                 "max": float(max(frame_ms))}
+    print(f"{name}: " + json.dumps(m))
+    print(f"{name}: fps windows {m['ate_long_fps_windows']} ({kwargs.get('fps_window', 100)} frames each, rendering "
+          f"included), tracking thread's host ms per frame p50 {per_frame['p50']:.1f}, p90 {per_frame['p90']:.1f}, "
+          f"max {per_frame['max']:.1f}; device peak allocated {peak_mb:.1f} MB (torch.cuda.max_memory_allocated); "
+          f"host peak RSS {m['ate_long_peak_rss_mb']} MB; kernel launches {json.dumps(launches)}")
+    print(f"{name}: relocalizations {json.dumps(relocs)}")
+    return m, {"launches": launches, "per_frame": per_frame, "states": states, "relocs": relocs, "peak_mb": peak_mb,
+               "kept": tuple(kept) if len(kept) == 2 else None, "centres": centres}
+
+
+def phase_endurance_run():
+    """Phase 16 (a): the endurance run on the card on the System's
+    defaults (shipping=True): the noise frames are LOST, tracking recovers
+    by a relocalization from keyframe-database candidates, one orb_describe
+    and one stereo_sad per frame (noise frames included) and no patch
+    tile, ATE within max(1.25 x, + 2 cm) of the JAX package's pinned run."""
+    n, loss_frames = ENDURANCE["n_frames"], ENDURANCE["loss_frames"]
+    loss_start = int(n * ENDURANCE["loss_at"])
+    first_after = loss_start + loss_frames
+    m, rec = run_endurance_on_card("endurance", keep_frame=first_after, shipping=True, **ENDURANCE)
+    launches, states, relocs, kept = rec["launches"], rec["states"], rec["relocs"], rec["kept"]
+    noise = states[loss_start:first_after]
+    check(len(states) == n, f"endurance: {len(states)} frames tracked, want {n}")
+    check(noise == ["LOST"] * loss_frames, f"endurance: the noise frames' states are {noise}, want LOST")
+    check(m["ate_long_lost_frames"] <= loss_frames + 6, f"endurance: {m['ate_long_lost_frames']} frames lost")
+    check(m["ate_long_recovered_at"] > 0, "endurance: tracking never recovered after the dropout")
+    check(all(r["db_candidates"] for r in relocs if loss_start <= r["frame"] < first_after),
+          f"endurance: a noise frame's relocalization had no keyframe-database candidates: {relocs}")
+    from_db = [r for r in relocs if r["ok"] and r["db_candidates"] and r["kf"] in r["db_candidates"]]
+    if not from_db:
+        # The JAX ladder tries the track step before relocalization, and its
+        # reference-keyframe rung recovers the first frame after the dropout
+        # when the keyframe left by the last failed relocalization is close
+        # (which one that is follows the database's ranking for a noise
+        # frame, and the card's asynchronous schedule).  Then that frame is
+        # relocalized here, after the run, from the database's candidates
+        # over the final map.
+        check(kept is not None, "endurance: the first frame after the dropout was not kept")
+        slam, frame = kept
+        cand = [int(k) for k in slam._reloc_candidates(frame)]
+        ok, _, n_inl = slam.tracker._relocalize(frame)
+        kf = int(slam.tracker.ref_kf)
+        print(f"endurance: frame {first_after} was recovered by the track step; relocalized after the run: ok {ok}, "
+              f"{n_inl} inliers, keyframe {kf} of the database's candidates {cand}")
+        if ok and kf in cand:
+            from_db = [{"frame": first_after, "ok": True, "inliers": int(n_inl), "kf": kf, "after_run": True}]
+    check(from_db, f"endurance: no relocalization succeeded from keyframe-database candidates: {relocs}")
+    check(launches == {"patch_tiles": 0, "orb_describe": n, "stereo_sad": n},
+          f"endurance: kernel launches {launches} for {n} frames (want one orb_describe and one stereo_sad per frame)")
+    bound = max(1.25 * JAX_CPU_REFERENCE_ATE_ENDURANCE_M, JAX_CPU_REFERENCE_ATE_ENDURANCE_M + 0.02)
+    print(f"endurance: ATE {m['ate_long_m']:.4f} m (bound {bound:.5f} m from the JAX package's pinned "
+          f"{JAX_CPU_REFERENCE_ATE_ENDURANCE_M:.5f} m), recovered at frame {m['ate_long_recovered_at']}, "
+          f"{len(from_db)} relocalization(s) from database candidates (first at frame {from_db[0]['frame']})")
+    check(m["ate_long_m"] <= bound, f"endurance: ATE {m['ate_long_m']:.4f} m above {bound:.5f} m")
+    return launches, {**m, "ate_long_frame_host_ms": rec["per_frame"], "ate_long_device_peak_mb": rec["peak_mb"],
+                      "ate_long_db_relocalizations": len(from_db),
+                      "ate_long_relocalized_in_run": not from_db[0].get("after_run", False)}
+
+
+def phase_checkpoint(slam):
+    """Phase 16 (b): save_map / load_map of phase 10's final map; every
+    array and every scalar key equal after the round trip."""
+    import tempfile
+
+    from orb_line_slam_tpu_torch.slam_map import checkpoint
+
+    store = slam.map
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "map.npz")
+        t0 = time.perf_counter()
+        checkpoint.save_map(store, path)
+        t1 = time.perf_counter()
+        back = checkpoint.load_map(path)
+        t2 = time.perf_counter()
+        size_mb = os.path.getsize(path) / 2**20
+    names = checkpoint._ARRAYS + (checkpoint._LINE_ARRAYS if store.Lf else [])
+    differ = [k for k in names if not np.array_equal(getattr(store, k), getattr(back, k))]
+    scalars = ("_next_kf", "_free_pts", "_free_lines", "_free_kfs", "K", "P", "F", "L", "Lf")
+    differ += [k for k in scalars if getattr(store, k) != getattr(back, k)]
+    print(f"checkpoint: phase 10's map ({int(store.kf_valid.sum())} keyframes, {int(store.pt_valid.sum())} points, "
+          f"{int(store.ln_valid.sum())} lines) saved in {(t1 - t0) * 1e3:.1f} ms ({size_mb:.2f} MB), loaded in "
+          f"{(t2 - t1) * 1e3:.1f} ms; {len(names)} arrays and {len(scalars)} scalars compared, differing: {differ}")
+    check(not differ, f"checkpoint: {differ} differ after the round trip")
+
+
+def phase_native():
+    """Phase 16 (c): build the native host library (make libnative in
+    native/) and, if it built, parse one synthesized vocabulary through
+    the native parser and the pure-Python one: equal node lists and
+    vocabularies.  A failed build is reported, not a failure: the
+    Python parse is the reference's own path."""
+    import tempfile
+
+    from orb_line_slam_tpu_torch.loop.vocabulary import Vocabulary
+    from orb_line_slam_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    try:
+        mk = subprocess.run(["make", "libnative"], cwd=native._NATIVE_DIR, capture_output=True, text=True,
+                            timeout=300)
+        reason = "" if mk.returncode == 0 else (mk.stderr or mk.stdout).strip()[-600:]
+    except (OSError, subprocess.TimeoutExpired) as e:
+        reason = repr(e)
+    lib = None if reason else native.get_native_lib()
+    if lib is None:
+        print(f"native: libnative did not build ({time.perf_counter() - t0:.1f} s): {reason or 'the library did not load'}")
+        return {"native_built": False}
+    print(f"native: libnative built in {time.perf_counter() - t0:.1f} s")
+    voc = Vocabulary.synthesize(k=10, depth=4, seed=0)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "voc.txt")
+        voc.save_orbvoc_txt(path)
+        t0 = time.perf_counter()
+        fast = native.parse_orbvoc_native(path)
+        t1 = time.perf_counter()
+        slow = Vocabulary.parse_orbvoc_nodes(path)
+        t2 = time.perf_counter()
+    check(fast is not None, "native: the library built but parse_orbvoc_native returned None")
+    same = fast[:2] == slow[:2] and all(np.array_equal(a, b) for a, b in zip(fast[2:], slow[2:]))
+    va, vb = Vocabulary._from_node_list(*fast), Vocabulary._from_node_list(*slow)
+    same = same and all(np.array_equal(getattr(va, k), getattr(vb, k))
+                        for k in ("children", "node_desc", "word_id", "word_weight"))
+    print(f"native: a {len(slow[2])}-node vocabulary ({va.n_words} words) parsed natively in {(t1 - t0) * 1e3:.1f} ms "
+          f"and in Python in {(t2 - t1) * 1e3:.1f} ms (host); equal: {same}")
+    check(same, "native: the native and the Python parse differ")
+    return {"native_built": True, "orbvoc_parse_native_ms": (t1 - t0) * 1e3, "orbvoc_parse_python_ms": (t2 - t1) * 1e3}
+
+
+def phase_endurance(loop_slam):
+    """Phase 16: (a) the endurance run, (b) the map checkpoint, (c) the
+    native library."""
+    launches, out = phase_endurance_run()
+    phase_checkpoint(loop_slam)
+    out.update(phase_native())
+    return launches, out
+
+
+def endurance_long():
+    """bench.py:92's run_endurance(n_frames=1500, shipping=True) on the
+    card, then the same run pinned (shipping=False, the JAX package's
+    default), kept out of the smoke (``python3 chip_smoke.py
+    --endurance-long``): each takes longer than the smoke's whole limit.
+    Beside each dict: the tracked pose's error against the truth, frame
+    by frame as the tracker reported it (not the final trajectory, which
+    later corrections rewrite): how many frames were off by more than
+    0.3 m, the first and the worst, and the frames lost."""
+    from orb_line_slam_tpu_torch.data.synthetic import loop_circuit_trajectory
+
+    phase_device()
+    phase_build()
+    import orb_line_slam_tpu_torch  # noqa: F401  (sets the fp32 policy)
+
+    truth = np.stack([-R.T @ t for R, t in loop_circuit_trajectory(**ENDURANCE_LONG)])
+    for shipping in (True, False):
+        name = f"endurance long ({'shipping' if shipping else 'pinned'})"
+        t0 = time.perf_counter()
+        m, rec = run_endurance_on_card(name, progress_every=100, shipping=shipping, **ENDURANCE_LONG)
+        err = np.linalg.norm(np.stack(rec["centres"]) - truth, axis=1)
+        off = np.flatnonzero(err > 0.3)
+        print(json.dumps({**m, "shipping": shipping, "ate_long_frame_host_ms": rec["per_frame"],
+                          "ate_long_device_peak_mb": rec["peak_mb"], "launches": rec["launches"],
+                          "seconds": time.perf_counter() - t0,
+                          "lost_at": [i for i, st in enumerate(rec["states"]) if st == "LOST"],
+                          "tracked_pose_error_m": {"frames_above_0.3": int(len(off)),
+                                                   "first_above_0.3": int(off[0]) if len(off) else None,
+                                                   "max": float(err.max()), "max_at": int(err.argmax()),
+                                                   "median_per_100_frames": [round(float(np.median(err[i:i + 100])), 3)
+                                                                             for i in range(0, len(err), 100)]}}))
+        host_probe(f"after the {name} run")
+
+
 # (module, function, range name): the stages a profile range is opened
 # around.  Nested ranges (the line pose terms inside the tracking step,
 # the segment sums inside the joint BA) count inside their parents too.
@@ -2586,10 +2861,14 @@ def main():
     done("phase 14")
     metrics["distributed_ba"] = phase_distributed(cfg.camera, gba_capacity, loop_slam)
     done("phase 15")
+    n, metrics["endurance"] = phase_endurance(loop_slam)
+    add_launches(launches, n)
+    done("phase 16")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
     # launches: orb_describe and stereo_sad over the slices' stereo frames
-    # (phases 5, 7, 10 and 11) and the multi-sequence steps (phase 14),
+    # (phases 5, 7, 10 and 11), the multi-sequence steps (phase 14) and
+    # the endurance run (phase 16),
     # orb_describe over the mono and RGB-D frames (phases 12 and 13),
     # patch_tiles over the single-image path with tiles (phase 4), each
     # read just after its path with the counts set to 0 just before it.
@@ -2606,4 +2885,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--endurance-long"]:
+        sys.path.insert(0, ROOT)
+        endurance_long()
+    else:
+        main()

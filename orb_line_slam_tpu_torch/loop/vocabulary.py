@@ -4,7 +4,9 @@ Port of ``orb_line_slam_tpu/loop/vocabulary.py``.  The host parts
 (``train`` 55, ``synthesize`` 117, ``save_orbvoc_txt`` /
 ``parse_orbvoc_txt`` / ``_from_node_list`` 141-226, ``bow_from_words``,
 ``bow_vector``, ``score_l1`` 280-318) are numpy, copied line for line so
-that the same descriptors and seed give the same tree.  The word descent
+that the same descriptors and seed give the same tree; the parse takes
+the native parser of ``utils/native.py`` when it builds, as JAX's does
+(173-204).  The word descent
 (``transform_words`` 228-264) is the device part: ``depth`` levels of a
 [D, k, 32] XOR + popcount against the current nodes' children, a masked
 argmin (dead children at 1 << 16, first minimum wins, as ``jnp.argmin``)
@@ -172,7 +174,23 @@ class Vocabulary:
     def parse_orbvoc_txt(path: str | Path):
         """Parse DBoW2's text vocabulary format (ORBvoc.txt):
         header 'k L scoring weighting', then one node per line:
-        parent_id is_leaf 32-byte-descriptor weight."""
+        parent_id is_leaf 32-byte-descriptor weight.
+
+        Uses the native mmap parser (native/vocab_parser.cpp through
+        ``utils/native.py``) when it can be built, where the 145 MB
+        reference vocabulary parses in seconds instead of minutes, and
+        the pure-Python parse (``parse_orbvoc_nodes``) otherwise."""
+        from ..utils.native import parse_orbvoc_native
+
+        parsed = parse_orbvoc_native(path)
+        if parsed is None:
+            parsed = Vocabulary.parse_orbvoc_nodes(path)
+        return Vocabulary._from_node_list(*parsed)
+
+    @staticmethod
+    def parse_orbvoc_nodes(path: str | Path):
+        """The pure-Python parse of an ORBvoc.txt: (k, depth, parents,
+        is_leaf, descriptors, weights), as ``parse_orbvoc_native``."""
         with open(path) as f:
             header = f.readline().split()
             k, depth = int(header[0]), int(header[1])
@@ -185,11 +203,8 @@ class Vocabulary:
                 leafs.append(int(parts[1]))
                 descs.append([int(x) for x in parts[2:34]])
                 weights.append(float(parts[34]))
-        parents = np.asarray(parents, np.int32)
-        leafs = np.asarray(leafs, np.int32)
-        descs = np.asarray(descs, np.uint8)
-        weights = np.asarray(weights, np.float64)
-        return Vocabulary._from_node_list(k, depth, parents, leafs, descs, weights)
+        return (k, depth, np.asarray(parents, np.int32), np.asarray(leafs, np.int32),
+                np.asarray(descs, np.uint8), np.asarray(weights, np.float64))
 
     @staticmethod
     def _from_node_list(k, depth, parents, leafs, descs, weights):

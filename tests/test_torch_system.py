@@ -74,8 +74,9 @@ def test_slice_matches_jax_system():
 
 
 def test_package_never_imports_jax(tmp_path):
-    """The port imports (the distributed BA's modules included) and tracks
-    frames, lines on, with `import jax` made to fail."""
+    """The port imports (the distributed BA's modules, the endurance run,
+    checkpoints, loaders, native bridge, viewer and example drivers
+    included) and tracks frames, lines on, with `import jax` made to fail."""
     script = textwrap.dedent(f"""
         import sys
         class _Block:
@@ -96,6 +97,16 @@ def test_package_never_imports_jax(tmp_path):
         import orb_line_slam_tpu_torch.parallel.multihost
         import orb_line_slam_tpu_torch.parallel.multihost_worker
         import orb_line_slam_tpu_torch.parallel.sharded_ba
+        import orb_line_slam_tpu_torch.eval.endurance
+        import orb_line_slam_tpu_torch.eval.viewer
+        import orb_line_slam_tpu_torch.slam_map.checkpoint
+        import orb_line_slam_tpu_torch.data.euroc
+        import orb_line_slam_tpu_torch.data.kitti
+        import orb_line_slam_tpu_torch.data.tum
+        import orb_line_slam_tpu_torch.utils.native
+        import orb_line_slam_tpu_torch.examples._common
+        for name in ("stereo_kitti", "stereo_euroc", "mono_kitti", "mono_euroc", "mono_tum", "rgbd_tum"):
+            __import__("orb_line_slam_tpu_torch.examples." + name)
         cam = CameraIntrinsics(fx=400.0, fy=400.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
         cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=512, n_levels=3), lines=LineConfig(n_lines=32))
         scene = SyntheticScene(cam, n_points=300, n_lines=30, seed=4, extent=((-14, 14), (-6, 6), (6, 60)))
