@@ -19,15 +19,18 @@ over a shard mesh, in one process and across processes through
 eval/endurance.py's run (a sensor dropout recovered by relocalization,
 keyframe culling under capacity pressure), after building
 the hand-written CUDA kernels from the sources in this checkout and
-holding each to its plain PyTorch version.  Run from the root of a
+holding each to its plain PyTorch version: the describe and stereo-SAD
+kernels of the front end and the pose solve (every tracking step's three
+LM solves and each relocalization's, one launch each).  Run from the root of a
 checkout:
 
     python3 chip_smoke.py
 
 Phases (each fails loudly, and the script exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: nvcc builds csrc/patch_tiles.cu, orb_describe.cu and
-     stereo_sad.cu for sm_90a, one process each, started together;
+  2. build: nvcc builds csrc/patch_tiles.cu, orb_describe.cu,
+     stereo_sad.cu and pose_solve.cu for sm_90a, one process each,
+     started together;
   3. kernels vs plain, at each of the three stereo cells' atlas shapes
      and feature budgets (8, 8 and 4 pyramid levels), and for
      orb_describe also at the TUM cell's batch of one ([1, 2210, 640],
@@ -43,7 +46,14 @@ Phases (each fails loudly, and the script exits non-zero):
      kernel's own device time, the plain version's device time and
      kernel count, and the bound from the bytes and operations that
      input needs; at the first shape the host time of each wrapper when
-     it launches nothing;
+     it launches nothing; pose_solve at each cell's M points and L lines
+     (2000 / 1200 / 1000 and 0 / 128 / 64), 10 seeded problems at 4x10
+     with the lines and 10 at 2x8 without, and 5 launches of a batch of 4
+     (M = 2000, L = 128, 4x10): on every problem within 1e-3 rad and
+     5e-3 m of the plain version, n_inliers within 3, the inlier masks
+     equal on >= 99.5% of rows; the median pose difference and the
+     accept/reject decisions that differ are printed; times, own device
+     time, plain version and bound as above;
   4. one frame: build_stereo_frame on the card vs its plain path on the
      CPU, held to the frame contract of tests/test_torch_frontend.py;
      on the card it must launch exactly one orb_describe and one
@@ -58,8 +68,9 @@ Phases (each fails loudly, and the script exits non-zero):
      no patch_tiles and making no [N, 32, 32] tensor;
   5. the slice: 40 frames, state OK, >= 3 keyframes, >= 1 local BA, one
      orb_describe and one stereo_sad launch per frame and no patch-tile
-     launch, ATE no more than 10% + 1 cm above the JAX package's ATE on
-     the same frames and schedule;
+     launch, three pose-solve launches per frame after the first (one
+     tracking step each) and no other, ATE no more than 10% + 1 cm above
+     the JAX package's ATE on the same frames and schedule;
   6. one line frame: build_line_features on the card vs its plain path
      on the CPU, on a EuRoC-size pair, held to the line contract of
      tests/test_tpu_parity.py, and its time per stereo pair;
@@ -70,8 +81,10 @@ Phases (each fails loudly, and the script exits non-zero):
      than 10% + 1 cm above the JAX package's;
   8. profile: a torch.profiler window of frames 33-35 of phase 7's own
      run (left out of its frames/s), with record_function ranges around
-     the stages: kernels and device ms per frame, device ms per range,
-     the top device kernels (printed as a JSON line and a table);
+     the stages: kernels and device ms per frame, device ms and kernels
+     per range (the tracking step's kernels per frame and its pose
+     solves' on a line of their own), the top device kernels (printed as
+     a JSON line and a table);
   9. loop components on the card vs the same code on CPU tensors, at
      real sizes, with CUDA-event or host-clock times and the device time
      of one call under torch.profiler: the word descent
@@ -126,8 +139,9 @@ Phases (each fails loudly, and the script exits non-zero):
      speedup against B = 1, and the kernels and device ms of one steady
      batched step profiled alone at B = 1 and 4.  In both, every batched step launches
      exactly one orb_describe and one stereo_sad (a per-sequence step one
-     of each per sequence), and a per-sample fallback of torch.func.vmap
-     fails the run;
+     of each per sequence) and three pose solves per tracking step (the
+     vmapped step of all B sequences is one), and a per-sample fallback
+     of torch.func.vmap fails the run;
  15. the distributed global BA (BASELINE config #5), S shards sharing
      cuda:0 (the card is one GPU, so every ratio is the sharding overhead
      on one card, not a scaling): (a) the sharded dense LM and CG on 4
@@ -149,7 +163,7 @@ Phases (each fails loudly, and the script exits non-zero):
      the asynchronous dispatch_global_ba (solved on the global-BA
      worker's stream) + poll_global_ba are held to bundle_adjust_cg on
      the same pack (inlier flags on >= 99% of the rows, the poses written
-     to the map).  None of the three kernels is launched on this path.
+     to the map).  None of the four kernels is launched on this path.
  16. the endurance run and the host modules: (a)
      eval/endurance.py::run_endurance(n_frames=120, laps=0.45,
      loss_at=0.5, loss_frames=4, lines=True, shipping=True,
@@ -159,7 +173,8 @@ Phases (each fails loudly, and the script exits non-zero):
      tracking recovered, >= 1 Tracker._relocalize that succeeds from
      keyframe-database candidates (the method wrapped here), one
      orb_describe and one stereo_sad per frame (noise frames included)
-     and no patch tile, ATE within max(1.25 x, + 2 cm) of the JAX
+     and no patch tile, three pose solves per tracking step and one per
+     relocalization or reference-keyframe solve, ATE within max(1.25 x, + 2 cm) of the JAX
      package's pinned run of the same call on the CPU; prints the
      returned dict, the fps windows, the device's peak allocated memory
      and the tracking thread's host ms per frame; (b) save_map /
@@ -181,11 +196,19 @@ torch.profiler now and then returns a window with device records
 missing; such a window is taken again (a bounded number of times, then
 the run fails), and a line near the end says how many were.  All five sequences are rendered once, before phase 4, by worker
 processes (the frames equal those of rendering each in order).  The line
-before the last lists the three kernels, with their launches over
+before the last lists the four kernels, with their launches over
 phases 4, 5, 7, 10, 11, 12, 13, 14 and 16; the last line is the JSON
 device record.  ``python3 chip_smoke.py --endurance-long`` runs
 bench.py:92's run_endurance(n_frames=1500, shipping=True) and the same
 run pinned instead (about 13 minutes each on the card).
+``python3 chip_smoke.py --compare-parent DIR`` drives phases 5 and 7's
+slices through the package of the tree at DIR (an unpacked parent
+commit) and of this checkout in turns, parent, this, this, parent, each
+in its own process, and prints frames/s, host ms and the profiled
+kernels per frame side by side.  ``python3 chip_smoke.py
+--schedule-probe DIR N OUT`` repeats phases 11 (a) and 14 (a) N times
+through the package at DIR and prints how their ATEs and the deferred
+BAs' lags repeat.
 Imports nothing of JAX.
 """
 
@@ -793,6 +816,208 @@ def phase_fused_kernels(cells, mono_cells=()):
     return summary(d_records), summary(s_records)
 
 
+# The pose solve's cells (phase 3): the points M the tracking step hands
+# it (a frame's feature budget) and the lines L of the final solve (the
+# line table's n_lines; 0 with lines off).  Paths A and B run 2x8 without
+# lines, the final solve and relocalization 4x10.
+POSE_SCHEDULES = ((4, 10), (2, 8))
+POSE_PROBLEMS = 10                  # per cell and schedule (20 per cell)
+POSE_BATCH = 4                      # a batched multi-sequence step's B
+# float32 operations per observation and pass of csrc/pose_solve.cu,
+# counted from its source (a multiply-add 2, a division, square root, sine
+# or cosine 1): pass 1 (residual, Jacobian rows, weight, each row's 21 + 6
+# products into H and g), pass 2 (residual, chi2, weight), the gating
+# pass; per iteration the 28 + 1 block sums over 256 threads (255 adds
+# each) and thread 0's damped 6x6 LU solve and exponential map (~480).
+POSE_FLOP = {"pass1_stereo": 266, "pass1_mono": 189, "pass2_stereo": 45, "pass2_mono": 42, "gate_stereo": 39,
+             "gate_mono": 36, "line_pass1": 227, "line_pass2": 65, "line_gate": 65, "iteration": 29 * 255 + 480}
+
+
+def _rodrigues(v):
+    th = float(np.linalg.norm(v))
+    k = v / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def pose_problem(cam, seed, M, L, mono_frac=0.3, outlier_frac=0.2):
+    """A seeded pose problem (numpy, the test generator of
+    tests/test_torch_pose_solve.py at a cell's camera): M points seen at a
+    true pose with 0.5 px noise per pyramid level, mono_frac of them mono,
+    outlier_frac outliers 15-40 px off, 95% valid; L line segments (line
+    coefficients through the noisy projected endpoints, outlier_frac of
+    them 30 px off); the start pose 0.02 rad and 0.1 m off.  Returns
+    pose_optimize's arrays (R0, t0, points, obs, octave, valid[, start,
+    end, line obs, line octave, line valid])."""
+    rng = np.random.default_rng(seed)
+    R_gt, t_gt = _rodrigues(rng.normal(0, 0.3, 3)), rng.normal(0, 1, 3)
+
+    def world(n, z_range):
+        uv = np.stack([rng.uniform(0, cam.width, n), rng.uniform(0, cam.height, n)], -1)
+        z = rng.uniform(*z_range, n)
+        xc = np.stack([(uv[:, 0] - cam.cx) / cam.fx * z, (uv[:, 1] - cam.cy) / cam.fy * z, z], -1)
+        return uv, z, (xc - t_gt) @ R_gt
+
+    uv, z, pts = world(M, (2, 30))
+    octave = rng.integers(0, 8, M)
+    obs = np.concatenate([uv, (uv[:, 0] - cam.bf / z)[:, None]], -1) + rng.normal(0, 1, (M, 3)) * (
+        0.5 * 1.2 ** octave)[:, None]
+    obs[rng.random(M) < mono_frac, 2] = -1.0
+    out = rng.random(M) < outlier_frac
+    obs[out, :2] += rng.uniform(15, 40, (out.sum(), 2)) * rng.choice([-1, 1], (out.sum(), 2))
+    arrays = [_rodrigues(rng.normal(0, 0.02, 3)) @ R_gt, t_gt + rng.normal(0, 0.1, 3), pts, obs,
+              octave.astype(np.int32), rng.random(M) < 0.95]
+    if L:
+        (a, _, s), (b, _, e) = world(L, (2, 20)), world(L, (2, 20))
+        a, b = a + rng.normal(0, 0.5, (L, 2)), b + rng.normal(0, 0.5, (L, 2))
+        a[rng.random(L) < outlier_frac] += 30.0
+        la, lb, lc = a[:, 1] - b[:, 1], b[:, 0] - a[:, 0], a[:, 0] * b[:, 1] - b[:, 0] * a[:, 1]
+        n = np.sqrt(la * la + lb * lb + 1e-12)
+        arrays += [s, e, np.stack([la / n, lb / n, lc / n], -1), np.zeros(L, np.int32), rng.random(L) < 0.95]
+    return [x.astype(np.float32) if x.dtype.kind == "f" else x for x in arrays]
+
+
+def pose_solve_need(args, rounds, iters):
+    """(bytes, float32 operations) one launch of the pose solve needs on
+    these inputs (args: the operator's, one solve or a leading [B]): each
+    input read once and each output written once; the operations of
+    POSE_FLOP over the rows each round actually visits, read from the
+    kernel's own inlier masks after 1 .. rounds - 1 rounds (the schedule's
+    prefix: the same launches give the same bits)."""
+    from orb_line_slam_tpu_torch.backend import pose_opt
+
+    tensors = args[:11]
+    B = tensors[0].shape[0] if tensors[0].dim() == 3 else 1
+    M, L = tensors[2].shape[-2], tensors[6].shape[-2]
+    n_bytes = sum(x.numel() * x.element_size() for x in tensors) + B * (36 + 12 + M + L + 4 + rounds * iters)
+    stereo = tensors[3][..., 2] > 0
+    masks = [(tensors[5], tensors[10])]
+    for r in range(1, rounds):
+        out = pose_opt.pose_solve_cuda(*args, r, iters)
+        masks.append((out[2], out[3]))
+    f = POSE_FLOP
+    ops = 0
+    for p_in, l_in in masks:
+        n_st, n_mo, n_l = int((p_in & stereo).sum()), int((p_in & ~stereo).sum()), int(l_in.sum())
+        ops += iters * (n_st * (f["pass1_stereo"] + f["pass2_stereo"]) + n_mo * (f["pass1_mono"] + f["pass2_mono"])
+                        + n_l * (f["line_pass1"] + f["line_pass2"]) + B * f["iteration"])
+        ops += int(stereo.sum()) * f["gate_stereo"] + int((~stereo).sum()) * f["gate_mono"] + B * L * f["line_gate"]
+    return n_bytes, ops
+
+
+def phase_pose_solve(cells):
+    """The pose-solve kernel on the card vs its plain version (the same
+    function on CUDA tensors) at each cell's shapes (cells: (name, cfg, M,
+    L)): POSE_PROBLEMS seeded problems per schedule (4x10 with the cell's L
+    lines, 2x8 without), then POSE_PROBLEMS // 2 launches of a batch of
+    POSE_BATCH at the first cell's M with the bench pipeline's lines.  On
+    every problem: rotation within 1e-3 rad, translation within 5e-3 m,
+    n_inliers within 3, point and line inlier masks equal on >= 99.5% of
+    rows; the accept/reject decisions that differ are counted.  Then, per
+    cell and schedule, CUDA-event times of kernel and plain version (plain,
+    kernel, kernel, plain), the kernel's own device time, the plain
+    version's device time and kernel count, and the bound.  Returns the
+    kernels-line record."""
+    import torch
+
+    from orb_line_slam_tpu_torch.backend import pose_opt
+
+    dev = torch.device("cuda")
+    records, gaps, flips, flipped_problems, n_problems = [], [], 0, 0, 0
+
+    def op_args(cfg, seed, M, L):
+        t = [torch.from_numpy(a).to(dev) for a in pose_problem(cfg.camera, seed, M, L)]
+        return pose_opt.solve_args(*t[:6], cfg.camera, cfg.orb.scale_factor, *t[6:])
+
+    def hold(got, args, rounds, iters, what):
+        """got: the kernel's outputs for args (one solve, or [B])."""
+        nonlocal flips, flipped_problems, n_problems
+        batched = args[0].dim() == 3
+        worst = 0.0
+        for b in range(args[0].shape[0] if batched else 1):
+            one = [x[b] for x in args[:11]] if batched else list(args[:11])
+            k = [x[b] for x in got] if batched else list(got)
+            p = pose_opt.pose_solve_plain(*one, *args[11:], rounds, iters)
+            rad = rotation_gap(k[0].cpu().numpy()[None], p[0].cpu().numpy()[None])
+            dt = float((k[1] - p[1]).abs().max())
+            p_agree = float((k[2] == p[2]).float().mean())
+            l_agree = float((k[3] == p[3]).float().mean()) if k[3].numel() else 1.0
+            n_k, n_p = int(k[4]), int(p[4])
+            differ = int((k[5] != p[5]).sum())
+            flips += differ
+            flipped_problems += differ > 0
+            n_problems += 1
+            gaps.append((rad, dt))
+            worst = max(worst, float((k[0] - p[0]).abs().max()), dt)
+            check(bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all()), f"pose_solve {what}: non-finite pose")
+            check(rad < 1e-3 and dt < 5e-3 and abs(n_k - n_p) <= 3 and p_agree >= 0.995 and l_agree >= 0.995,
+                  f"pose_solve {what}, solve {b}: kernel vs plain {rad:.2e} rad, {dt:.2e} m, inliers {n_k} / {n_p}, "
+                  f"masks agree {p_agree:.4f} / {l_agree:.4f}")
+        return worst
+
+    def timed(name, args, rounds, iters, worst):
+        kernel = lambda: pose_opt.pose_solve_cuda(*args, rounds, iters)  # noqa: E731
+        # A batch's plain version: the plain solve under vmap, as the
+        # operator runs B solves on the CPU.
+        solve = pose_opt.pose_solve_plain if args[0].dim() == 2 else \
+            torch.func.vmap(pose_opt.pose_solve_plain, in_dims=(0,) * 11 + (None,) * 7)
+        plain = lambda: solve(*args, rounds, iters)  # noqa: E731
+        # Its own device time first: a window taken after the batch's
+        # vmapped plain version came back one record short six times out
+        # of six on the card.
+        own = own_device_ms(kernel, "pose_solve_kernel", pose_opt)
+        plain_ms = cuda_times_ms(plain, n=3, warmup=1)
+        ms = cuda_times_ms(kernel, reps=10)
+        ms2 = cuda_times_ms(kernel, reps=10)
+        plain_ms2 = cuda_times_ms(plain, n=3, warmup=1)
+        plain_own, plain_k = device_ms(plain)
+        n_bytes, ops = pose_solve_need(args, rounds, iters)
+        bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_FLOPS * 1e3
+        print(f"pose_solve ({name}, {rounds}x{iters}): kernel {ms * 1e3:.1f}/{ms2 * 1e3:.1f} us, plain "
+              f"{plain_ms:.2f}/{plain_ms2:.2f} ms per solve (CUDA events; plain, kernel, kernel, plain); own device "
+              f"time {own * 1e3:.1f} us in 1 kernel (plain: {plain_own:.2f} ms in {plain_k} kernels); bound "
+              f"{max(bytes_ms, ops_ms) * 1e3:.3f} us: {n_bytes} bytes = {bytes_ms * 1e3:.3f} us, {ops} float32 "
+              f"operations = {ops_ms * 1e3:.3f} us")
+        records.append({"shape": f"{name}, {rounds}x{iters}", "max_abs_err": worst, "ms": min(ms, ms2),
+                        "plain_ms": min(plain_ms, plain_ms2), "bound_ms": max(bytes_ms, ops_ms),
+                        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
+                        "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
+
+    seed = 100
+    for name, cfg, M, L in cells:
+        for rounds, iters in POSE_SCHEDULES:
+            lines = L if (rounds, iters) == POSE_SCHEDULES[0] else 0
+            worst, args = 0.0, None
+            for _ in range(POSE_PROBLEMS):
+                seed += 1
+                args = op_args(cfg, seed, M, lines)
+                worst = max(worst, hold(pose_opt.pose_solve_cuda(*args, rounds, iters), args, rounds, iters, name))
+            timed(f"{name}: M={M}, L={lines}", args, rounds, iters, worst)
+    # A batched multi-sequence step: B solves in one launch of B blocks.
+    name, cfg, M, _ = cells[0]
+    L, (rounds, iters) = bench_pipeline_config().lines.n_lines, POSE_SCHEDULES[0]
+    worst = 0.0
+    for _ in range(POSE_PROBLEMS // 2):
+        per = [op_args(cfg, seed + b, M, L) for b in range(POSE_BATCH)]
+        seed += POSE_BATCH
+        args = (*(torch.stack([p[i] for p in per]) for i in range(11)), *per[0][11:])
+        before = pose_opt.launches
+        got = pose_opt.pose_solve_cuda(*args, rounds, iters)
+        check(pose_opt.launches == before + 1 and got[0].shape == (POSE_BATCH, 3, 3),
+              "pose_solve: a batch was not one launch")
+        worst = max(worst, hold(got, args, rounds, iters, f"{name}, batch of {POSE_BATCH}"))
+    timed(f"{name}, a batch of {POSE_BATCH}: M={POSE_BATCH}x{M}, L={POSE_BATCH}x{L}", args, rounds, iters, worst)
+    rad = np.array([g[0] for g in gaps])
+    dt = np.array([g[1] for g in gaps])
+    print(f"pose_solve kernel vs plain over {n_problems} seeded problems: rotation median {np.median(rad):.2e} rad "
+          f"(max {rad.max():.2e}), translation median {np.median(dt):.2e} m (max {dt.max():.2e}); accept/reject "
+          f"decisions that differ: {flips} in {flipped_problems} of {n_problems} problems")
+    return {**records[0], "max_abs_err": max(r["max_abs_err"] for r in records), "by_shape": records,
+            "problems": n_problems, "median_rotation_rad": float(np.median(rad)),
+            "median_translation_m": float(np.median(dt)), "decisions_differing": flips,
+            "problems_with_a_differing_decision": flipped_problems}
+
+
 def sequence_job(cfg, n_frames, scene_kw=None, step=0.25):
     """The render job of a stereo slice along circular_trajectory."""
     from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene, circular_trajectory
@@ -846,7 +1071,7 @@ def phase_frame(cfg, pair):
         fg = build_stereo_frame(lg, rg, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 1},
+    check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 1, "pose_solve": 0},
           f"build_stereo_frame on the card launched {launches} (want one orb_describe, one stereo_sad, no patch_tiles)")
     check(not watch.seen, f"build_stereo_frame on the card made tile tensors: {watch.seen[:3]}")
     with TileWatch() as watch_cpu:
@@ -930,7 +1155,7 @@ def phase_single_image(cfg, frames, n_images=5):
         fg, tiles = extract_orb_with_tiles(torch.from_numpy(l).cuda(), cfg.orb)
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"patch_tiles": n_images, "orb_describe": 0, "stereo_sad": 0},
+    check(launches == {"patch_tiles": n_images, "orb_describe": 0, "stereo_sad": 0, "pose_solve": 0},
           f"extract_orb_with_tiles on {n_images} images launched {launches} (want one patch_tiles per image)")
     check(tiles.shape == (cfg.orb.n_features, 32, 32) and tiles.is_cuda, f"tiles {tuple(tiles.shape)}")
     fc, _ = extract_orb_with_tiles(torch.from_numpy(frames[n_images - 1][0]), cfg.orb)
@@ -970,7 +1195,7 @@ def phase_mono_rgbd_frames(cfg, img, depth):
             fg = build(*gpu_args, cfg)
         torch.cuda.synchronize()
         launches = read_launches()
-        check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 0},
+        check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 0, "pose_solve": 0},
               f"build_{kind}_frame on the card launched {launches} (want one orb_describe and nothing else)")
         check(not watch.seen, f"build_{kind}_frame on the card made tile tensors: {watch.seen[:3]}")
         check(fg.xy.is_cuda and fg.depth.is_cuda, f"build_{kind}_frame left the card")
@@ -1040,13 +1265,20 @@ def phase_bench_ba(cfg):
     return ms
 
 
-KERNELS = ("patch_tiles", "orb_describe", "stereo_sad")
+KERNELS = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve")
+# The function each kernel replaces in the JAX package: the one Pallas
+# kernel, and the jitted pose solve (TPU-shaped XLA code).
+REPLACES = {"patch_tiles": "orb_line_slam_tpu/ops/pallas_patches.py:99",
+            "orb_describe": "orb_line_slam_tpu/ops/pallas_patches.py:99",
+            "stereo_sad": "orb_line_slam_tpu/ops/pallas_patches.py:99",
+            "pose_solve": "orb_line_slam_tpu/backend/pose_opt.py:57"}
 
 
 def kernel_modules():
+    from orb_line_slam_tpu_torch.backend import pose_opt
     from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
 
-    return dict(zip(KERNELS, (patches, describe, stereo_sad)))
+    return dict(zip(KERNELS, (patches, describe, stereo_sad, pose_opt)))
 
 
 def reset_launches():
@@ -1063,8 +1295,45 @@ def add_launches(total, part):
         total[name] = total.get(name, 0) + n
 
 
+class PoseSolveSites:
+    """While entered, counts the calls that launch pose solves: the
+    tracking step (three solves a call; the batched multi-sequence step of
+    B sequences is one call) and Tracker._pose_opt_from_assoc (one solve: a
+    reference-keyframe track or a relocalization).  ``expected()`` is the
+    pose-solve launches they account for since the last ``reset()``."""
+
+    def __enter__(self):
+        from orb_line_slam_tpu_torch.pipeline import track_step as step_mod, tracking
+
+        self._lock = threading.Lock()
+        self._saved = [(tracking, "track_step", tracking.track_step), (step_mod, "track_step", step_mod.track_step),
+                       (tracking.Tracker, "_pose_opt_from_assoc", tracking.Tracker._pose_opt_from_assoc)]
+        self.reset()
+
+        def counted(fn, key):
+            def wrapper(*a, **k):
+                with self._lock:
+                    self.counts[key] += 1
+                return fn(*a, **k)
+            return wrapper
+
+        for obj, name, fn in self._saved:
+            setattr(obj, name, counted(fn, "assoc_solves" if name == "_pose_opt_from_assoc" else "track_steps"))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+    def reset(self):
+        self.counts = {"track_steps": 0, "assoc_solves": 0}
+
+    def expected(self):
+        return 3 * self.counts["track_steps"] + self.counts["assoc_solves"]
+
+
 def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=False, warmup=WARMUP_FRAMES,
-              window=None, sensor="stereo"):
+              window=None, sensor="stereo", check_launches=True):
     """Drive the System on the card over the frames (``sensor`` "stereo":
     (left, right) pairs through track_stereo; "mono": images through
     track_monocular; "rgbd": (image, depth) pairs through track_rgbd), with
@@ -1077,7 +1346,10 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     per kernel, fps over frames warmup.. (warmup None: the frames after
     the first tracked one), ATE (a monocular run's over its tracked
     frames, similarity-aligned), the per-frame host ms {p50, p90, max}
-    over the same frames)."""
+    over the same frames).  Every pose-solve launch must come from a
+    tracking step (three each) or a solve from associations (one each);
+    check_launches=False skips the launch checks (another tree's package,
+    whose kernels differ)."""
     import torch
 
     from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
@@ -1092,20 +1364,21 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
           f"{name}: the System's schedule is not the one asked for")
     track = {"stereo": slam.track_stereo, "mono": slam.track_monocular, "rgbd": slam.track_rgbd}[sensor]
     stream = torch.cuda.current_stream()
-    reset_launches()
     frame_ms = []
-    for i, fr in enumerate(frames):
-        if window is not None:
-            window.before(i)
-        t0 = time.perf_counter()
-        track(*(fr if isinstance(fr, tuple) else (fr,)), timestamp=dt * i)
-        stream.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if window is not None:
-            window.after(i, frame_ms[-1])
-    slam.shutdown()
-    torch.cuda.synchronize()
-    launches = read_launches()
+    with PoseSolveSites() as sites:
+        reset_launches()
+        for i, fr in enumerate(frames):
+            if window is not None:
+                window.before(i)
+            t0 = time.perf_counter()
+            track(*(fr if isinstance(fr, tuple) else (fr,)), timestamp=dt * i)
+            stream.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if window is not None:
+                window.after(i, frame_ms[-1])
+        slam.shutdown()
+        torch.cuda.synchronize()
+        launches = read_launches()
     traj = slam.tracker.final_trajectory()
     est = np.stack([-R.T @ t for (_, _, R, t, _) in traj])
     gt = np.stack([-R.T @ t for (R, t) in poses])
@@ -1130,7 +1403,8 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     host_probe(f"after the {name}")
     print(f"{name}: {len(frames)} frames, state {slam.tracking_state()}, {n_kf} keyframes, "
           f"{tr.n_local_ba} local BAs applied, {tr.n_ba_skipped} skipped, {tr.n_ba_stale} discarded as stale, "
-          f"kernel launches {json.dumps(launches)}")
+          f"kernel launches {json.dumps(launches)}; {sites.counts['track_steps']} tracking steps and "
+          f"{sites.counts['assoc_solves']} solves from associations")
     print(f"{name} ({'shipping' if shipping else 'pinned'} schedule): tracking thread's host ms per frame over frames "
           f"{warmup}-{len(frames) - 1}" + (f" but the {len(profiled_frames)} profiled" if profiled_frames else "")
           + f": p50 {per_frame['p50']:.1f}, p90 {per_frame['p90']:.1f}, max {per_frame['max']:.1f}; worker busy s "
@@ -1149,10 +1423,14 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     check(tr.n_local_ba >= 1, f"{name}: no local BA was applied")
     # Two hand-written kernels per stereo pair, one orb_describe per mono or
     # RGB-D frame, and no tile gather.
+    # and three pose solves per tracking step.
     n_sad = len(frames) if sensor == "stereo" else 0
-    check(launches == {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": n_sad},
-          f"{name}: kernel launches {launches} for {len(frames)} frames (want one orb_describe"
-          + (" and one stereo_sad" if n_sad else " and nothing else") + " per frame)")
+    want = {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": n_sad, "pose_solve": sites.expected()}
+    check(not check_launches or (launches == want and sites.counts["track_steps"] > 0),
+          f"{name}: kernel launches {launches} for {len(frames)} frames, {sites.counts} (want one orb_describe"
+          + (" and one stereo_sad" if n_sad else "") + " per frame, three pose solves per tracking step and one "
+          "per solve from associations)")
+    slam.pose_solve_sites = dict(sites.counts)
     return slam, launches, fps, ate, per_frame
 
 
@@ -1164,6 +1442,18 @@ def check_ate(name, ate, ref):
     check(ate <= bound, f"{name}: ATE {ate:.5f} m exceeds {bound:.5f} m (JAX reference {ref:.5f} m + 10% + 1 cm)")
 
 
+def check_three_solves_per_frame(name, slam, launches, n_frames):
+    """A pinned stereo slice: every frame after the first (which
+    initialises the map) is one tracking step, three pose-solve launches,
+    and no other solve runs."""
+    sites = slam.pose_solve_sites
+    print(f"{name}: {launches['pose_solve']} pose-solve launches for {sites['track_steps']} tracking steps of "
+          f"{n_frames} frames ({launches['pose_solve'] / max(sites['track_steps'], 1):.2f} per tracked frame), "
+          f"{sites['assoc_solves']} solves from associations")
+    check(sites == {"track_steps": n_frames - 1, "assoc_solves": 0} and launches["pose_solve"] == 3 * (n_frames - 1),
+          f"{name}: {launches['pose_solve']} pose-solve launches, {sites}: want 3 per frame after the first")
+
+
 def phase_slice(cfg, poses, frames):
     slam, launches, fps, ate, _ = run_slice(cfg, poses, frames, "slice", 0.1)
     ba = slam.tracker.timing.table().get("local_ba", {"ms_per_call": float("nan")})
@@ -1171,6 +1461,7 @@ def phase_slice(cfg, poses, frames):
           f"{ba['ms_per_call']:.1f} ms per local BA, ATE {ate:.5f} m "
           f"(JAX CPU reference {JAX_CPU_REFERENCE_ATE_M:.5f} m)")
     check_ate("slice", ate, JAX_CPU_REFERENCE_ATE_M)
+    check_three_solves_per_frame("slice", slam, launches, len(frames))
     return launches, fps, ba["ms_per_call"], ate
 
 
@@ -1226,6 +1517,7 @@ def phase_line_slice(cfg, poses, frames):
     check(n_lines >= 10, f"only {n_lines} map lines")
     check(with_lines > 0.5 * len(tracked), f"line inliers on only {with_lines}/{len(tracked)} tracked frames")
     check_ate("point+line slice", ate, JAX_CPU_REFERENCE_ATE_LINES_M)
+    check_three_solves_per_frame("point+line slice", slam, launches, len(frames))
     return launches, fps, ba["ms_per_call"], ate
 
 
@@ -1756,6 +2048,12 @@ def phase_loop_slice(cfg, poses, frames):
     return launches, fps, ate, slam
 
 
+def check_ba_lag(name, lags):
+    """Tracker.poll_mapping joins each deferred local BA one frame after
+    its pack (a final flush in its own frame), whatever the host's speed."""
+    check(max(lags, default=0) <= 1, f"{name}: deferred local BAs landed {lags} frames after their pack")
+
+
 def phase_shipping_pipeline(poses, frames, pinned_ate):
     """Phase 11 (a): bench.py::_bench_pipeline on the card: System(cfg,
     device="cuda") with bench.py's configuration over phase 5's N_FRAMES
@@ -1770,6 +2068,7 @@ def phase_shipping_pipeline(poses, frames, pinned_ate):
           f"{slam.n_loops_closed} loops, map lines {int(slam.map.ln_valid.sum())}")
     check(ate <= bound, f"shipping pipeline: ATE {ate:.5f} m above {bound:.5f} m")
     check(int(slam.map.ln_valid.sum()) > 0, "shipping pipeline: lines are on, yet the map holds no line")
+    check_ba_lag("shipping pipeline", slam.tracker.ba_lag_frames)
     return launches, fps, per_frame, ate
 
 
@@ -1818,6 +2117,7 @@ def phase_shipping_circuit(poses, frames, pinned_ate):
           and seen["_apply_gba"] == {"MainThread"},
           f"shipping circuit: no global BA solved on its worker and applied by poll_global_ba: {seen}")
     check(ate <= bound, f"shipping circuit: ATE {ate:.5f} m above {bound:.5f} m")
+    check_ba_lag("shipping circuit", slam.tracker.ba_lag_frames)
     return launches, fps, per_frame, ate, slam.n_loops_closed
 
 
@@ -1869,7 +2169,9 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
     set to 0 just before each step and read just after: a batched step
     must launch exactly one orb_describe and one stereo_sad, a
     per-sequence step (bootstrap, or line mirrors of different
-    capacities) one of each per sequence.  On the batched steps numbered
+    capacities) one of each per sequence; three pose solves per tracking
+    step (a batched step's vmapped one is one launch each for all B) and
+    one per solve from associations.  On the batched steps numbered
     in `check_steps` (from 0) each sequence's batched TrackOut is held to
     an unbatched track_step on the same tensors: poses within 1e-4 rad and
     1e-4 m, assoc_gid equal on >= 99% of rows.  The inputs of batched step
@@ -1878,6 +2180,7 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
     kept inputs or None)."""
     import torch
 
+    from orb_line_slam_tpu_torch.backend import pose_opt
     from orb_line_slam_tpu_torch.parallel import multi_sequence
     from orb_line_slam_tpu_torch.parallel.multi_sequence import MultiSequenceTracker, _take
     from orb_line_slam_tpu_torch.pipeline.track_step import track_step
@@ -1893,6 +2196,8 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
         if step == keep_step:
             state["kept"] = (left, right, stacked, has_lines)
         if step in check_steps:
+            # The unbatched comparison's pose solves are not the path's.
+            path_launches = pose_opt.launches
             last_frame, mir, *rest = stacked
             carry, table = rest[:15], rest[15:]
             for b in range(n_seq):
@@ -1908,6 +2213,7 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
                       f"of rows, inliers {int(got.n_inliers)} / {int(want.n_inliers)}, has_lines {has_lines}")
                 check(d_rot <= 1e-4 and d_t <= 1e-4 and same >= 0.99,
                       f"{name}: sequence {b}'s batched step {step} disagrees with the unbatched track_step")
+            pose_opt.launches = path_launches
             state["checked"] += 1
         return frames, lfs, outs
 
@@ -1920,12 +2226,14 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
     # functorch warns when an operator has no batching rule and it loops
     # over the batch instead (B times the launches): any such warning fails.
     torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    pose_per_step = []
     try:
-        with warnings.catch_warnings(record=True) as seen:
+        with warnings.catch_warnings(record=True) as seen, PoseSolveSites() as sites:
             warnings.simplefilter("always")
             for i in range(len(seqs[0])):
                 ready = mst._ready()
                 reset_launches()
+                sites.reset()
                 t0 = time.perf_counter()
                 mst.process_stereo([s[i][0] for s in seqs], [s[i][1] for s in seqs], [0.1 * i] * n_seq)
                 stream.synchronize()
@@ -1934,9 +2242,11 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
                 was_batched = mst.n_batched_frames == sum(batched) + 1
                 batched.append(was_batched)
                 per = 1 if was_batched else n_seq
-                check(n == {"patch_tiles": 0, "orb_describe": per, "stereo_sad": per},
+                check(n == {"patch_tiles": 0, "orb_describe": per, "stereo_sad": per, "pose_solve": sites.expected()}
+                      and (not was_batched or sites.counts["track_steps"] >= 1),
                       f"{name}: step {i} ({'batched' if was_batched else 'per sequence'}, ready {ready}) "
-                      f"launched {n}")
+                      f"launched {n}, {sites.counts}")
+                pose_per_step.append(n["pose_solve"])
                 add_launches(launches, n)
             mst.shutdown()
     finally:
@@ -1947,9 +2257,11 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
     check(not fallbacks, f"{name}: torch.func.vmap fell back to a per-sample loop: {fallbacks}")
     check(state["checked"] == len(check_steps), f"{name}: only {state['checked']} of the batched steps "
           f"{list(check_steps)} ran ({mst.n_batched_frames} batched)")
+    batched_pose = sorted({k for k, was in zip(pose_per_step, batched) if was})
     print(f"{name}: {len(frame_ms)} steps of {n_seq} sequences, {mst.n_batched_frames} batched, "
           f"{mst.n_bootstrap_frames} per sequence while bootstrapping, {mst.n_mixed_line_frames} per sequence for "
-          f"line mirrors of different capacities; kernel launches {json.dumps(launches)}; "
+          f"line mirrors of different capacities; kernel launches {json.dumps(launches)}; pose-solve launches per "
+          f"batched step {batched_pose} (per step: {pose_per_step}); "
           f"{mst.n_loops_closed} loops; stages " + json.dumps(mst.timing.table(len(frame_ms))))
     return mst, launches, frame_ms, batched, state["kept"]
 
@@ -2011,6 +2323,7 @@ def phase_multiseq_correctness(poses, frames, pipeline_ate):
               f"{int(t.map.ln_valid.sum())}, ATE {ate:.5f} m (bound {bound:.5f} m from phase 11 (a)'s "
               f"{pipeline_ate:.5f} m)")
         check(t.state == "OK", f"multi-sequence B=2, sequence {b}: final state {t.state}")
+        check_ba_lag(f"multi-sequence B=2, sequence {b}", t.ba_lag_frames)
         check(ate <= bound, f"multi-sequence B=2, sequence {b}: ATE {ate:.5f} m above {bound:.5f} m")
     host_probe("after multi-sequence B=2")
     return launches, ates, print_aggregate("multi-sequence B=2", 2, frame_ms, batched)
@@ -2397,7 +2710,7 @@ def phase_dist_route(slam):
 
 def phase_distributed(cam, gba_capacity, loop_slam):
     """Phase 15, the distributed global BA (BASELINE config #5): (a) to (e).
-    None of the three hand-written kernels is on this path: their counts
+    None of the four hand-written kernels is on this path: their counts
     are set to 0 before and must read 0 after."""
     reset_launches()
     phase_dist_parity()
@@ -2490,13 +2803,14 @@ def run_endurance_on_card(name, progress_every=0, keep_frame=None, **kwargs):
         track_stereo, reloc_candidates, relocalize, consume
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
     try:
-        m = run_endurance(device="cuda", **kwargs)
+        with PoseSolveSites() as sites:
+            reset_launches()
+            m = run_endurance(device="cuda", **kwargs)
+            torch.cuda.synchronize()
+            launches = read_launches()
     finally:
         System.track_stereo, System._reloc_candidates, Tracker._relocalize, Tracker._consume = saved
-    torch.cuda.synchronize()
-    launches = read_launches()
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     per_frame = {"p50": float(np.percentile(frame_ms, 50)), "p90": float(np.percentile(frame_ms, 90)),
                  "max": float(max(frame_ms))}
@@ -2504,10 +2818,12 @@ def run_endurance_on_card(name, progress_every=0, keep_frame=None, **kwargs):
     print(f"{name}: fps windows {m['ate_long_fps_windows']} ({kwargs.get('fps_window', 100)} frames each, rendering "
           f"included), tracking thread's host ms per frame p50 {per_frame['p50']:.1f}, p90 {per_frame['p90']:.1f}, "
           f"max {per_frame['max']:.1f}; device peak allocated {peak_mb:.1f} MB (torch.cuda.max_memory_allocated); "
-          f"host peak RSS {m['ate_long_peak_rss_mb']} MB; kernel launches {json.dumps(launches)}")
+          f"host peak RSS {m['ate_long_peak_rss_mb']} MB; kernel launches {json.dumps(launches)}; "
+          f"{sites.counts['track_steps']} tracking steps, {sites.counts['assoc_solves']} solves from associations")
     print(f"{name}: relocalizations {json.dumps(relocs)}")
     return m, {"launches": launches, "per_frame": per_frame, "states": states, "relocs": relocs, "peak_mb": peak_mb,
-               "kept": tuple(kept) if len(kept) == 2 else None, "centres": centres}
+               "kept": tuple(kept) if len(kept) == 2 else None, "centres": centres, "pose_sites": dict(sites.counts),
+               "pose_expected": sites.expected()}
 
 
 def phase_endurance_run():
@@ -2547,8 +2863,12 @@ def phase_endurance_run():
         if ok and kf in cand:
             from_db = [{"frame": first_after, "ok": True, "inliers": int(n_inl), "kf": kf, "after_run": True}]
     check(from_db, f"endurance: no relocalization succeeded from keyframe-database candidates: {relocs}")
-    check(launches == {"patch_tiles": 0, "orb_describe": n, "stereo_sad": n},
-          f"endurance: kernel launches {launches} for {n} frames (want one orb_describe and one stereo_sad per frame)")
+    check(launches == {"patch_tiles": 0, "orb_describe": n, "stereo_sad": n, "pose_solve": rec["pose_expected"]},
+          f"endurance: kernel launches {launches} for {n} frames, {rec['pose_sites']} (want one orb_describe and one "
+          f"stereo_sad per frame, three pose solves per tracking step and one per relocalization solve)")
+    print(f"endurance: {launches['pose_solve']} pose-solve launches: 3 x {rec['pose_sites']['track_steps']} tracking "
+          f"steps + {rec['pose_sites']['assoc_solves']} from associations (relocalization and reference-keyframe "
+          f"tracks) over {n} frames")
     bound = max(1.25 * JAX_CPU_REFERENCE_ATE_ENDURANCE_M, JAX_CPU_REFERENCE_ATE_ENDURANCE_M + 0.02)
     print(f"endurance: ATE {m['ate_long_m']:.4f} m (bound {bound:.5f} m from the JAX package's pinned "
           f"{JAX_CPU_REFERENCE_ATE_ENDURANCE_M:.5f} m), recovered at frame {m['ate_long_recovered_at']}, "
@@ -2671,15 +2991,227 @@ def endurance_long():
         host_probe(f"after the {name} run")
 
 
+def tree_probe(tree, out_path):
+    """``python3 chip_smoke.py --tree-probe DIR OUT``: phases 5 and 7's
+    slices (their frames, configs and pinned schedule, each with phase 8's
+    profile window) driven through the package of the tree at DIR by this
+    script's functions, the launch checks off (another tree's kernels
+    differ).  Writes to OUT one JSON object: per slice frames/s, the
+    tracking thread's host ms per frame, the tracker's track_step host ms
+    per call, ATE, launches, and the window's kernels and device ms per
+    frame of the whole frame, the tracking step and its pose solves."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    cfg, lcfg = kitti_config(), euroc_config()
+    jobs = [sequence_job(cfg, N_FRAMES), sequence_job(lcfg, N_FRAMES, LINE_SCENE, LINE_STEP)]
+    frames, lframes = render_jobs(jobs, min(8, os.cpu_count() or 1))
+    phase_device()
+    import orb_line_slam_tpu_torch
+    from orb_line_slam_tpu_torch.ops import _build
+
+    pkg = os.path.dirname(os.path.abspath(orb_line_slam_tpu_torch.__file__))
+    check(pkg == os.path.join(tree, "orb_line_slam_tpu_torch"), f"--tree-probe {tree} imported the package at {pkg}")
+    _build.build()
+    out = {"tree": tree, "sources": list(_build.SOURCES)}
+    for key, c, job, fr, dt in (("points", cfg, jobs[0], frames, 0.1), ("lines", lcfg, jobs[1], lframes, 0.05)):
+        window = ProfileWindow(f"{key} slice of {tree}")
+        slam, launches, fps, ate, per_frame = run_slice(c, job[1], fr, f"{key} slice", dt, window=window,
+                                                        check_launches=False)
+        out[key] = {"fps": fps, "frame_host_ms": per_frame, "ate_m": ate, "launches": launches,
+                    "track_step_host_ms_per_call": slam.tracker.timing.table()["track_step"]["ms_per_call"],
+                    **window.summary}
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def compare_parent(parent):
+    """``python3 chip_smoke.py --compare-parent DIR``: --tree-probe of the
+    tree at DIR (an unpacked parent commit) and of this checkout in turns,
+    parent, this, this, parent, each in a process of its own on the same
+    card; prints each probe and, per slice, this tree's figures beside the
+    parent's (kernels per frame of the tracking step as a share of the
+    parent's)."""
+    import tempfile
+
+    phase_device()
+    rows = []
+    with tempfile.TemporaryDirectory() as d:
+        for i, tree in enumerate((parent, ROOT, ROOT, parent)):
+            path = os.path.join(d, f"probe{i}.json")
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "--tree-probe", tree, path], timeout=900)
+            check(r.returncode == 0 and os.path.exists(path), f"--tree-probe {tree} failed ({r.returncode})")
+            with open(path) as f:
+                rows.append(json.load(f))
+            print(json.dumps({"tree_probe": rows[-1]}), flush=True)
+    keys = ("fps", "track_step_host_ms_per_call", "kernels_per_frame", "track_step_kernels_per_frame",
+            "pose_solve_kernels_per_frame", "device_busy_ms_per_frame", "track_step_device_ms_per_frame")
+    summary = {}
+    for cell in ("points", "lines"):
+        summary[cell] = {k: {"parent": [rows[0][cell][k], rows[3][cell][k]], "this": [rows[1][cell][k], rows[2][cell][k]]}
+                         for k in keys}
+        summary[cell]["frame_host_ms_p50"] = {"parent": [rows[0][cell]["frame_host_ms"]["p50"],
+                                                         rows[3][cell]["frame_host_ms"]["p50"]],
+                                              "this": [rows[1][cell]["frame_host_ms"]["p50"],
+                                                       rows[2][cell]["frame_host_ms"]["p50"]]}
+        tk = summary[cell]["track_step_kernels_per_frame"]
+        summary[cell]["track_step_kernels_share_of_parent"] = max(tk["this"]) / min(tk["parent"])
+    print(json.dumps({"compare_parent": summary}))
+
+
+SCHEDULE_REPLAY_ABOVE_M = 0.02    # --schedule-probe replays the first B = 2 run above this
+
+
+def replay_steps(kept, poses):
+    """Each kept batched step's sequence 0 through the unbatched
+    track_step with the plain pose solve: the gap to the batched kernel's
+    pose, and the camera-centre error of the kernel's pose and of the
+    plain replay's three solves (path A, path B, final; seed and result)
+    against the true pose, with the final solve's inliers' median
+    reprojection error at the true pose."""
+    from orb_line_slam_tpu_torch.backend.pose_opt import pose_optimize_reference
+    from orb_line_slam_tpu_torch.parallel.multi_sequence import _take
+    from orb_line_slam_tpu_torch.pipeline import track_step as step_mod
+
+    rows = []
+    for fid, frames, lfs, outs, stacked, cfg, has_lines in kept:
+        last_frame, mir, *rest = stacked
+        carry, table = rest[:15], rest[15:]
+        Rg, tg = (np.asarray(x, np.float64) for x in poses[fid])
+        true_c = -Rg.T @ tg
+        calls = []
+
+        def recorded(*a, **k):
+            res = pose_optimize_reference(*a, **k)
+            calls.append((a, res))
+            return res
+
+        saved = step_mod.pose_optimize
+        step_mod.pose_optimize = recorded
+        try:
+            want = step_mod.track_step(_take(frames, 0), _take(last_frame, 0), _take(mir, 0),
+                                       *(x[0] for x in carry), _take(lfs, 0) if has_lines else None,
+                                       *(x[0] for x in table), cfg=cfg, has_lines=has_lines)
+        finally:
+            step_mod.pose_optimize = saved
+
+        def centre(R, t):
+            R, t = R.detach().cpu().double().numpy(), t.detach().cpu().double().numpy()
+            return -R.T @ t
+
+        got = _take(outs, 0)
+        err = lambda c: float(1e3 * np.linalg.norm(c - true_c))  # noqa: E731
+        row = {"frame": int(fid), "kernel_vs_plain_mm": float(1e3 * np.linalg.norm(
+            centre(got.R, got.t) - centre(want.R, want.t))), "kernel_err_mm": err(centre(got.R, got.t))}
+        for stage, (a, res) in zip(("A", "B", "final"), calls):
+            row[stage] = {"seed_err_mm": err(centre(a[0], a[1])), "err_mm": err(centre(res.R, res.t)),
+                          "inliers": int(res.n_inliers)}
+        a, res = calls[-1]
+        inl = (res.inliers & a[5]).cpu().numpy()
+        pts, obs = a[2].detach().cpu().double().numpy()[inl], a[3].detach().cpu().double().numpy()[inl]
+        xc = pts @ Rg.T + tg
+        cam = cfg.camera
+        px = np.hypot(cam.fx * xc[:, 0] / xc[:, 2] + cam.cx - obs[:, 0],
+                      cam.fy * xc[:, 1] / xc[:, 2] + cam.cy - obs[:, 1])
+        row["final"]["true_pose_px_median"] = float(np.median(px)) if len(px) else None
+        rows.append(row)
+    return rows
+
+
+def schedule_probe(tree, n_runs, out_path):
+    """``python3 chip_smoke.py --schedule-probe DIR N OUT``: how the
+    shipping schedule repeats, through the package of the tree at DIR
+    (``.`` for this checkout).  Phase 11 (a)'s run and phase 14 (a)'s
+    B = 2 run, N times each, without their checks: per run the ATEs, the
+    keyframes' frames and each deferred local BA's lag.  The first B = 2
+    run whose sequence 0 reads above SCHEDULE_REPLAY_ABOVE_M is replayed
+    (``replay_steps``), where the tree has ``pose_optimize_reference``.
+    Writes the records to OUT as JSON and prints a summary."""
+    import torch
+
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    cfg = kitti_config()
+    job = sequence_job(cfg, N_FRAMES)
+    (frames,) = render_jobs([job], min(8, os.cpu_count() or 1))
+    poses = job[1]
+    phase_device()
+    import orb_line_slam_tpu_torch
+    from orb_line_slam_tpu_torch.backend import pose_opt
+    from orb_line_slam_tpu_torch.ops import _build
+    from orb_line_slam_tpu_torch.parallel import multi_sequence
+    from orb_line_slam_tpu_torch.parallel.multi_sequence import MultiSequenceTracker
+
+    pkg = os.path.dirname(os.path.abspath(orb_line_slam_tpu_torch.__file__))
+    check(pkg == os.path.join(tree, "orb_line_slam_tpu_torch"), f"--schedule-probe {tree} imported {pkg}")
+    _build.build()
+    out = {"tree": tree, "ship": [], "multiseq": [], "replay": None}
+    for run in range(n_runs):
+        slam, _, fps, ate, _ = run_slice(bench_pipeline_config(), poses, frames, "shipping pipeline", 0.1,
+                                         use_loop_closing=True, shipping=True, warmup=12, check_launches=False)
+        tr = slam.tracker
+        out["ship"].append({"ate_m": ate, "fps": fps, "lags": [int(g) for g in tr.ba_lag_frames],
+                            "kf_frames": [int(f) for f in tr.map.kf_frame_id[tr.map.kf_valid]]})
+        print(f"schedule probe {tree}: phase 11 (a) run {run}: ATE {ate:.5f} m, {fps:.2f} frames/s, lags "
+              f"{out['ship'][-1]['lags']}", flush=True)
+    n = MULTISEQ_PAIR_FRAMES
+    seqs, gts = [frames[:n], frames[::-1][:n]], [poses[:n], poses[::-1][:n]]
+    batched_fn = multi_sequence.batched_frame_track
+    kept = []
+    for run in range(n_runs):
+        mst = MultiSequenceTracker(bench_pipeline_config(), 2, device="cuda")
+
+        def keeping(left, right, stacked, cfg_, has_lines, mst=mst):
+            frames_b, lfs, outs = batched_fn(left, right, stacked, cfg_, has_lines)
+            kept.append((mst.trackers[0].frame_id, frames_b, lfs, outs, stacked, cfg_, has_lines))
+            return frames_b, lfs, outs
+
+        multi_sequence.batched_frame_track = keeping
+        try:
+            t0 = time.perf_counter()
+            for i in range(n):
+                mst.process_stereo([s[i][0] for s in seqs], [s[i][1] for s in seqs], [0.1 * i] * 2)
+                torch.cuda.current_stream().synchronize()
+            seconds = time.perf_counter() - t0
+            mst.shutdown()
+        finally:
+            multi_sequence.batched_frame_track = batched_fn
+        ates = [sequence_ate(t, gt) for t, gt in zip(mst.trackers, gts)]
+        out["multiseq"].append({"ate_m": ates, "seconds": seconds, "batched": mst.n_batched_frames,
+                                "lags": [[int(g) for g in t.ba_lag_frames] for t in mst.trackers],
+                                "kf_frames": [[int(f) for f in t.map.kf_frame_id[t.map.kf_valid]]
+                                              for t in mst.trackers]})
+        print(f"schedule probe {tree}: phase 14 (a) run {run}: ATE {ates[0]:.5f} / {ates[1]:.5f} m in "
+              f"{seconds:.1f} s, keyframes {out['multiseq'][-1]['kf_frames'][0]}, lags "
+              f"{out['multiseq'][-1]['lags'][0]}", flush=True)
+        if out["replay"] is None and ates[0] > SCHEDULE_REPLAY_ABOVE_M and hasattr(pose_opt, "pose_optimize_reference"):
+            out["replay"] = {"run": run, "steps": replay_steps(kept, gts[0])}
+            for row in out["replay"]["steps"]:
+                print(f"schedule probe replay, frame {row['frame']}: kernel {row['kernel_err_mm']:.1f} mm from the "
+                      f"true pose, {row['kernel_vs_plain_mm']:.3f} mm from the plain solve; plain path B seed "
+                      f"{row['B']['seed_err_mm']:.1f} -> {row['B']['err_mm']:.1f} mm, final "
+                      f"{row['final']['err_mm']:.1f} mm with {row['final']['inliers']} inliers, median "
+                      f"{row['final']['true_pose_px_median'] or float('nan'):.2f} px from the true pose", flush=True)
+        kept.clear()
+    summary = {"ship_ate_m": sorted({round(r["ate_m"], 5) for r in out["ship"]}),
+               "multiseq_seq0_ate_m": [round(r["ate_m"][0], 5) for r in out["multiseq"]],
+               "multiseq_seq1_ate_m": [round(r["ate_m"][1], 5) for r in out["multiseq"]],
+               "max_lag": max((g for r in out["multiseq"] for lag in r["lags"] for g in lag), default=0)}
+    out["summary"] = summary
+    print(json.dumps({"schedule_probe": summary}), flush=True)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
 # (module, function, range name): the stages a profile range is opened
-# around.  Nested ranges (the line pose terms inside the tracking step,
-# the segment sums inside the joint BA) count inside their parents too.
+# around.  Nested ranges (the pose solves and the line search inside the
+# tracking step, the segment sums inside the joint BA) count inside their
+# parents too.
 PROFILE_RANGES = (
     ("pipeline.tracking", "build_stereo_frame", "point_frontend"),
     ("pipeline.tracking", "build_line_features", "line_frontend"),
     ("pipeline.tracking", "track_step", "track_step"),
     ("pipeline.track_step", "search_lines_by_projection", "line_search"),
-    ("backend.pose_opt", "line_residual_and_jacobian", "line_pose_terms"),
+    ("pipeline.track_step", "pose_optimize", "pose_solves"),
     ("pipeline.tracking", "bundle_adjust_pl", "joint_ba"),
     ("backend.line_ba", "_segment_sum", "joint_ba_segment_sums"),
     ("ops.lines", "nearest_sample", "line_walk_gather"),
@@ -2769,12 +3301,23 @@ class ProfileWindow:
             "device_idle_share_profiled": 1 - busy_us / 1e3 / self.wall_ms,
             "kernels_per_frame_by_stream": {k: v / n for k, v in by_stream.items()},
             "range_device_ms_per_frame": {k: v / 1e3 / n for k, v in per.items()},
+            "range_kernels_per_frame": {k: v[1] / n for k, v in stage.items()},
             "range_device_ms_per_call": {k: (per[k] / 1e3 / calls[k] if calls[k] else None) for k in tags},
             "range_calls": calls,
             "range_share_of_busy": {k: v / busy_us for k, v in per.items()},
         }}))
         for name, (d, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
             print(f"profile top kernel ({self.cell}): {d / 1e3 / n:8.3f} ms/frame {c / n:8.1f} calls/frame  {name[:110]}")
+        print(f"profile ({self.cell}): the tracking step launches {stage['track_step'][1] / n:.1f} device kernels per "
+              f"frame ({stage['track_step'][0] / 1e3 / n:.2f} device ms), its pose solves "
+              f"{stage['pose_solves'][1] / n:.1f} ({stage['pose_solves'][0] / 1e3 / n:.2f} device ms), of "
+              f"{len(kern) / n:.1f} kernels per frame in all")
+        self.summary = {"kernels_per_frame": len(kern) / n, "device_busy_ms_per_frame": busy_us / 1e3 / n,
+                "track_step_kernels_per_frame": stage["track_step"][1] / n,
+                "track_step_device_ms_per_frame": stage["track_step"][0] / 1e3 / n,
+                "pose_solve_kernels_per_frame": stage["pose_solves"][1] / n,
+                "pose_solve_device_ms_per_frame": stage["pose_solves"][0] / 1e3 / n}
+        return self.summary
 
 
 def main():
@@ -2810,6 +3353,8 @@ def main():
     cells = (("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg))
     kern = {"patch_tiles": phase_kernel(cells)}
     kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells, (("TUM cell", tcfg),))
+    kern["pose_solve"] = phase_pose_solve([(name, c, c.orb.n_features, c.lines.n_lines if c.lines.enabled else 0)
+                                           for name, c in cells])
     done("phases 1-3")
     metrics["stereo_frontend_fps"] = phase_frame(cfg, frames[0])
     phase_stereo_match_kernel_vs_plain(cfg, frames[0])
@@ -2870,13 +3415,15 @@ def main():
     # (phases 5, 7, 10 and 11), the multi-sequence steps (phase 14) and
     # the endurance run (phase 16),
     # orb_describe over the mono and RGB-D frames (phases 12 and 13),
-    # patch_tiles over the single-image path with tiles (phase 4), each
-    # read just after its path with the counts set to 0 just before it.
+    # patch_tiles over the single-image path with tiles (phase 4),
+    # pose_solve over every tracking step and relocalization of phases 5,
+    # 7, 10-14 and 16, each read just after its path with the counts set
+    # to 0 just before it.
     check(all(launches.get(name, 0) > 0 for name in KERNELS), f"a kernel was never launched on its path: {launches}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"orb_line_slam_tpu_torch/csrc/{name}.cu",
-        "replaces": "orb_line_slam_tpu/ops/pallas_patches.py:99",
+        "replaces": REPLACES[name],
         "launches": launches[name], **kern[name],
     } for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
@@ -2888,5 +3435,11 @@ if __name__ == "__main__":
     if sys.argv[1:] == ["--endurance-long"]:
         sys.path.insert(0, ROOT)
         endurance_long()
+    elif sys.argv[1:2] == ["--compare-parent"] and len(sys.argv) == 3:
+        compare_parent(sys.argv[2])
+    elif sys.argv[1:2] == ["--tree-probe"] and len(sys.argv) == 4:
+        tree_probe(sys.argv[2], sys.argv[3])
+    elif sys.argv[1:2] == ["--schedule-probe"] and len(sys.argv) == 5:
+        schedule_probe(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     else:
         main()

@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("patch_tiles", "orb_describe", "stereo_sad")
+SOURCES = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve")
 _FUNCTIONS: dict[str, ctypes._CFuncPtr] = {}
 
 

@@ -107,13 +107,12 @@ class MultiSequenceTracker:
         if not self._ready():
             self.n_bootstrap_frames += 1
             return self._per_sequence(imgs_left, imgs_right, timestamps)
-        # Apply finished mapping work, then refresh every mirror, so that
+        # This frame's mapping poll, then refresh every mirror, so that
         # the capacity check below sees this frame's shapes (and
         # _dispatch_inputs does not refresh again).
         with self.timing.stage("poll_refresh"):
             for t in self.trackers:
-                t.poll_map_jobs()
-                t.poll_pending_ba()
+                t.poll_mapping(t.frame_id + 1)
                 if t._mirror_dirty or t._mir is None or t._mir["ref_kf"] != t.ref_kf:
                     t._refresh_mirror(t.cur_lines)
         if len({t._mir["ln_valid"].shape[0] for t in self.trackers}) > 1:

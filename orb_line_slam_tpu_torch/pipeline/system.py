@@ -129,7 +129,7 @@ class System:
         # Reference CorrectLoop order: local mapping is drained before the
         # pose rewrite, so outstanding triangulation, fuse and BA land
         # instead of being discarded by the epoch guard.
-        self.tracker.poll_map_jobs(force=True)
+        self.tracker.poll_map_jobs()
         self.tracker.flush_pending_ba()
 
     def _reloc_candidates(self, frame):

@@ -22,20 +22,27 @@ work, with the pose refresh and re-anchoring after a loop correction,
 1131-1157), ``_local_ba``/``_apply_ba`` (1261-1358: the
 joint point+line BA when the window holds line observations),
 ``flush_pending_ba``, ``poll_pending_ba`` and ``poll_map_jobs``
-(1359-1488).  The line mirror holds ``n_lines`` rows only once the map
-has a valid line, else 8 (624-641).  Monocular and RGB-D frames carry no
+(1359-1488), the two polls of a frame's start joined in
+``poll_mapping``.  The line mirror holds ``n_lines`` rows only once the
+map has a valid line, else 8 (624-641).  Monocular and RGB-D frames carry no
 line features: the reference extracts lines only in ``process_stereo``
 (218, 239).
 
 Local mapping runs on one of two schedules.  With ``async_mapping``
 (the default, as in the JAX package) a keyframe's triangulation and
-fuse are launched at the keyframe event and applied by a later poll once
-they have finished; the local BA that follows is packed on the tracking
-thread, solved on the mapping worker thread (``utils/worker.py``), and
-applied by a later poll, with the current pose re-anchored by the
-reference keyframe's BA delta.  With ``async_mapping = False`` (the
-pinned schedule of ``bench.py:271-276``) everything is applied at the
-keyframe event and the pose rides on the reference keyframe.  The
+fuse are launched at the keyframe event and applied by the next frame's
+mapping poll (``poll_mapping``); the local BA that follows is packed
+there, solved on the mapping worker thread (``utils/worker.py``) while
+that frame is tracked, and applied by the mapping poll of the frame
+after, with the current pose re-anchored by the reference keyframe's BA
+delta.  Each poll waits for work still running, so every piece of
+mapping lands at the same frame whatever the host's and the worker's
+speed.  (The JAX package's polls apply what has finished by a clock.
+Once tracking outran the BA by two frames or more, where a solve landed
+decided the keyframes, and some of those maps let a frame's pose solve
+settle 10 cm off.)  With ``async_mapping = False`` (the pinned
+schedule of ``bench.py:271-276``) everything is applied at the keyframe
+event and the pose rides on the reference keyframe.  The
 stale-solve guards (keyframe, landmark and line generations,
 ``pose_epoch``) and the found/visible remap are kept.  Depth-2
 pipelining, packed fetches, the uint32 mirror codec, warmups, shape
@@ -161,8 +168,10 @@ class Tracker:
         self.is_mono = False
         self._init_ref = None            # (frame, host frame, timestamp, frame id): mono init reference
         # Deferred local mapping (the reference's LocalMapping thread):
-        # tracking never waits for triangulation, fuse or local BA.
+        # a keyframe's chain lands at the next frame, its local BA (solved
+        # on the mapping worker) at the frame after (``poll_mapping``).
         self.async_mapping = True
+        self._mapping_frame = -1         # the frame whose mapping poll ran last
         self._ba_skips = 0               # local BAs skipped in a row (mbAbortBA)
         self._traj_by_kf: dict[int, list[TrajectoryEntry]] = {}
         self.map.on_kf_culled.append(self._on_kf_culled)
@@ -174,8 +183,7 @@ class Tracker:
         self._carry = None               # (frame, TrackOut) of the last tracked frame
         self._prev_for_dispatch = None
         # Mapping chains awaiting application, oldest first:
-        # [(kf, tri_job, fuse_job, done, pose_epoch)], `done` a CUDA event
-        # recorded after the jobs' launches (None on the CPU: ready when made).
+        # [(kf, tri_job, fuse_job, pose_epoch)].
         self._map_jobs: list[tuple] = []
         self._pending_ba = None          # (pack, lpack, future, center_kf): one deferred BA
         self._mapping_worker: Optional[Worker] = None
@@ -219,7 +227,7 @@ class Tracker:
     def flush(self):
         """Join the mapping chains and the deferred local BA (the last
         chain's BA included: applying a BA starts no chain)."""
-        self.poll_map_jobs(force=True)
+        self.poll_map_jobs()
         self.flush_pending_ba()
 
     def stop(self):
@@ -231,10 +239,7 @@ class Tracker:
     # ------------------------------------------------------------------
     def _track(self, frame: Frame, lines: Optional[LineFeatures], timestamp: float):
         self.cur_lines = lines
-        # Non-blocking polls: apply finished mapping chains (then defer
-        # their local BA) and a finished local BA.
-        self.poll_map_jobs()
-        self.poll_pending_ba()
+        self.poll_mapping(self.frame_id)
         if self.state == "NOT_INITIALIZED":
             if int((frame.depth > 0).sum()) >= 100:
                 self._stereo_initialize(frame, lines, timestamp)
@@ -695,13 +700,9 @@ class Tracker:
             self.map.ln_visible[e.ln_ids[:nl]] += ln_vis[:nl]
         if self._carry is not None:
             self._carry = (self._carry[0], zero_stats(self._carry[1]))
-        # Non-blocking poll of the earlier keyframes' chains (their apply
-        # paths check generations, so applying late is safe); with 2+
-        # chains outstanding, join them (backpressure).
-        with self.timing.stage("kf_join_prev_chain"):
-            self.poll_map_jobs(force=len(self._map_jobs) >= 2)
-            self.poll_pending_ba()
-        # Drop associations invalidated by mapping since the frame was tracked.
+        # Earlier keyframes' chains and BAs were joined by this frame's
+        # mapping poll.  Drop associations invalidated by mapping since
+        # the frame was tracked.
         pos = assoc >= 0
         assoc[pos] = np.where(self.map.pt_valid[assoc[pos]], assoc[pos], -1)
         kf = self.map.add_keyframe(fh, self.R, self.t, e.fid, e.ts, lm_assoc=assoc, parent=self.ref_kf)
@@ -759,8 +760,8 @@ class Tracker:
                 self.last_frame = e.frame
 
         # Triangulation (CreateNewMapPoints) and fuse (SearchInNeighbors):
-        # launched now, applied by poll_map_jobs once the device has
-        # finished them (at once on the pinned schedule).
+        # launched now, applied by the next frame's mapping poll (at once
+        # on the pinned schedule).
         if self.map.n_keyframes() >= 2:
             with self.timing.stage("map_jobs"):
                 self._refresh_mirror(e.lines)
@@ -771,13 +772,9 @@ class Tracker:
                 fuse_job = dispatch_fuse(
                     self.map, kf, ids, cfg.camera, cfg.orb.level_scales, mirror=self._mir["pt"],
                 )
-                done = None
-                if self.device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record()
-            self._map_jobs.append((kf, tri_job, fuse_job, done, getattr(self.map, "pose_epoch", 0)))
+            self._map_jobs.append((kf, tri_job, fuse_job, getattr(self.map, "pose_epoch", 0)))
             if not self.async_mapping:
-                self.poll_map_jobs(force=True)
+                self.poll_map_jobs()
         else:
             self.mark_map_dirty()
 
@@ -815,11 +812,11 @@ class Tracker:
     # ------------------------------------------------------------------
     def _local_ba(self, center_kf, defer: bool = False):
         """Local bundle adjustment around center_kf, packed here.  With
-        defer=True the solve runs on the mapping worker and a later poll
-        applies it (``flush_pending_ba``); otherwise it is solved and
-        applied now, and the current pose rides with the reference
-        keyframe.  With lines on and line observations in the window it is
-        the joint point+line solve."""
+        defer=True the solve runs on the mapping worker and the next
+        frame's mapping poll applies it (``flush_pending_ba``); otherwise
+        it is solved and applied now, and the current pose rides with the
+        reference keyframe.  With lines on and line observations in the
+        window it is the joint point+line solve."""
         mc, lc = self.cfg.map, self.cfg.lines
         with self.timing.stage("ba_pack_host"):
             pack = self.map.pack_local_ba(
@@ -830,6 +827,7 @@ class Tracker:
             # makes this solve's poses pre-correction garbage.
             pack["pose_epoch"] = getattr(self.map, "pose_epoch", 0)
             pack["frame_id"] = self.frame_id
+            pack["mapping_frame"] = self._mapping_frame
             lpack = line0 = None
             if lc.enabled:
                 lpack = self.map.pack_line_obs(pack["cam_ids"], max_lines=lc.n_lines, max_lobs=lc.n_lines * 8)
@@ -907,22 +905,33 @@ class Tracker:
                     self._carry[1], torch.as_tensor(self.R, device=self.device),
                     torch.as_tensor(self.t, device=self.device)))
 
+    def poll_mapping(self, frame_id: int):
+        """The mapping poll at the start of frame ``frame_id`` (once per
+        frame; a second call for the same frame does nothing): apply the
+        chains launched before it, which packs and defers their local BA,
+        and apply the local BA packed before this frame, waiting for work
+        that is still running."""
+        if frame_id == self._mapping_frame:
+            return
+        self._mapping_frame = frame_id
+        self.poll_map_jobs()
+        self.poll_pending_ba()
+
     def poll_pending_ba(self):
-        """Apply the deferred local BA if its solve has finished."""
-        if self._pending_ba is not None and self._pending_ba[2].done():
+        """Apply the deferred local BA if it was packed before the current
+        frame's mapping poll (waiting for its solve); one packed since runs
+        on beside this frame."""
+        if self._pending_ba is not None and self._pending_ba[0].get("mapping_frame", -1) < self._mapping_frame:
             self.flush_pending_ba()
 
-    def poll_map_jobs(self, force: bool = False):
-        """Apply the oldest mapping chain (triangulation + fuse) once its
-        device work has finished, then run or defer the local BA for that
-        keyframe.  Non-blocking unless force=True: at most one chain per
-        non-forced poll, all of them when forced.  Chains launched before
-        a pose-epoch change (a loop correction) are discarded."""
+    def poll_map_jobs(self):
+        """Apply every mapping chain (triangulation + fuse), oldest first,
+        each followed by the local BA of its keyframe, run or deferred;
+        reading the chains' results waits for their device work.  Chains
+        launched before a pose-epoch change (a loop correction) are
+        discarded."""
         while self._map_jobs:
-            kf, tri_job, fuse_job, done, disp_epoch = self._map_jobs[0]
-            if not force and done is not None and not done.query():
-                return
-            self._map_jobs.pop(0)
+            kf, tri_job, fuse_job, disp_epoch = self._map_jobs.pop(0)
             stale = disp_epoch != getattr(self.map, "pose_epoch", 0)
             with self.timing.stage("map_jobs_apply"), self.map.lock:
                 if not stale:
@@ -946,5 +955,3 @@ class Tracker:
                     center = kf if self.map.kf_valid[kf] else self.ref_kf
                     self._local_ba(center, defer=self.async_mapping)
             self.mark_map_dirty()
-            if not force:
-                return

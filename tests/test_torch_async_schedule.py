@@ -258,6 +258,39 @@ def test_async_mapping_matches_jax_with_lines():
     assert len(tsys.tracker.joint_ba_lobs) >= 1
 
 
+def test_deferred_mapping_lands_at_the_same_frames_however_slow_the_worker():
+    """The port's deferred schedule does not depend on the mapping
+    worker's speed: with a worker that finishes each job before the next
+    frame and one that runs a job only when its result is waited for, the
+    System takes the same keyframes and tracks the same poses bit for
+    bit, and each deferred BA lands one frame after its pack (the last
+    in its own frame, joined by the shutdown)."""
+    scene = SyntheticScene(config_from_jax(POINT_CFG).camera, n_points=700, seed=21,
+                           extent=((-14, 14), (-6, 6), (8, 60)))
+    frames = [scene.render_stereo(R, t) for R, t in circular_trajectory(POINT_FRAMES, step=0.3)]
+    runs = {}
+    for eager in (True, False):
+        mp = pytest.MonkeyPatch()
+        mp.setattr(tracking, "Worker", _SteppedWorker)
+        try:
+            tsys = System(config_from_jax(POINT_CFG), use_loop_closing=False, device="cpu")
+            tr = tsys.tracker
+            per_frame = []
+            for i, (left, right) in enumerate(frames):
+                tsys.track_stereo(left, right, timestamp=0.1 * i)
+                per_frame.append((tr.R.copy(), tr.t.copy(), int(tsys.map.n_keyframes()), tr._pending_ba is not None))
+                if eager and tr._mapping_worker is not None:
+                    tr._mapping_worker.run_all()
+            tsys.shutdown()
+        finally:
+            mp.undo()
+        runs[eager] = (per_frame, list(tr.ba_lag_frames), tr.n_local_ba)
+    (fast, fast_lags, fast_n), (slow, slow_lags, slow_n) = runs[True], runs[False]
+    assert fast_n == slow_n >= 3 and fast_lags == slow_lags and set(fast_lags[:-1]) == {1}
+    assert [f[2:] for f in fast] == [f[2:] for f in slow]
+    assert all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]) for a, b in zip(fast, slow))
+
+
 # ----------------------------------------------------------------------
 # the guards, on one state given to both packages
 # ----------------------------------------------------------------------
@@ -354,9 +387,9 @@ def test_ba_skip_limit_matches_jax():
             seq = seqs.setdefault((name, async_mapping), [])
             tr._local_ba = lambda kf, defer=False, seq=seq: seq.append(("ba", int(kf), defer))
             for kf in (8, 9, 10, 11):
-                ready = 0.0 if name == "jax" else None
-                tr._map_jobs.append((kf, None, None, ready, getattr(tr.map, "pose_epoch", 0)))
-            tr.poll_map_jobs(force=True)
+                epoch = getattr(tr.map, "pose_epoch", 0)
+                tr._map_jobs.append((kf, None, None, 0.0, epoch) if name == "jax" else (kf, None, None, epoch))
+            tr.poll_map_jobs(**({"force": True} if name == "jax" else {}))
             assert not tr._map_jobs
         assert ttr.n_ba_skipped == (2 if async_mapping else 0)
     assert seqs[("torch", True)] == seqs[("jax", True)] == [("ba", 9, True), ("ba", 11, True)]

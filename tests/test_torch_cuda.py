@@ -1,8 +1,9 @@
 """Tests that need a CUDA card: the hand-written kernels (patch tiles,
-fused describe, fused stereo SAD, one pair or a batch of pairs) against
-their plain versions, and the point front end (one pair or a batch), the
-line front end and the frames of mono and RGB-D images on the card
-against the CPU.  They skip where no card is present; run them on the card with
+fused describe, fused stereo SAD, one pair or a batch of pairs, the pose
+solve at the three cells' shapes, one solve or a batch in one launch)
+against their plain versions, and the point front end (one pair or a
+batch), the line front end and the frames of mono and RGB-D images on
+the card against the CPU.  They skip where no card is present; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -10,10 +11,14 @@ This file imports torch and the port only, and --noconftest skips
 tests/conftest.py, which imports jax (the card's machine has no jax).
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from orb_line_slam_tpu_torch.backend import pose_opt
 from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
 
 pytestmark = pytest.mark.cuda
@@ -200,12 +205,14 @@ def test_batched_frame_track_on_card_has_no_vmap_fallback(cuda):
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("error")
-            before = (describe.launches, stereo_sad.launches)
+            before = (describe.launches, stereo_sad.launches, pose_opt.launches)
             frames, lfs, outs = batched_frame_track(left, right, stacked, cfg, has_lines=True)
             torch.cuda.synchronize()
     finally:
         torch._C._functorch._set_vmap_fallback_warning_enabled(False)
-    assert (describe.launches, stereo_sad.launches) == (before[0] + 1, before[1] + 1)
+    # One launch of each front-end kernel and three pose solves (paths A
+    # and B, the final solve), each one launch for both sequences.
+    assert (describe.launches, stereo_sad.launches, pose_opt.launches) == (before[0] + 1, before[1] + 1, before[2] + 3)
     last_frame, mir, *rest = stacked
     for b in range(2):
         want = track_step(_take(frames, b), _take(last_frame, b), _take(mir, b), *(x[b] for x in rest[:15]),
@@ -214,6 +221,79 @@ def test_batched_frame_track_on_card_has_no_vmap_fallback(cuda):
         assert int(want.n_inliers) > 50
         assert float((got.R - want.R).abs().max()) <= 1e-4 and float((got.t - want.t).abs().max()) <= 1e-4
         assert float((got.assoc_gid == want.assoc_gid).float().mean()) >= 0.99
+
+
+def _chip_smoke():
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pose_inputs(cs, cfg, seed, M, L, dev):
+    """pose_optimize's arguments (positional, line keywords) for one of
+    chip_smoke.py's seeded pose problems, on dev."""
+    t = [torch.from_numpy(a).to(dev) for a in cs.pose_problem(cfg.camera, seed, M, L)]
+    keys = ("line_start_w", "line_end_w", "line_obs", "line_octave", "line_valid")
+    return t[:6], dict(zip(keys, t[6:]))
+
+
+@pytest.mark.parametrize("cell", ["point", "point+line", "loop"])
+@pytest.mark.parametrize("rounds,iters", [(4, 10), (2, 8)])
+def test_pose_solve_kernel_matches_plain(cuda, cell, rounds, iters):
+    """pose_optimize on CUDA tensors is one launch of csrc/pose_solve.cu,
+    held to its plain version on the same tensors at the cell's points and
+    (final solve) lines: 1e-3 rad, 5e-3 m, n_inliers within 3, the inlier
+    masks equal on >= 99.5% of rows."""
+    cs = _chip_smoke()
+    cfg = {"point": cs.kitti_config, "point+line": cs.euroc_config, "loop": cs.loop_config}[cell]()
+    M = cfg.orb.n_features
+    L = cfg.lines.n_lines if cfg.lines.enabled and (rounds, iters) == (4, 10) else 0
+    for seed in range(3):
+        args, kw = _pose_inputs(cs, cfg, seed, M, L, cuda)
+        before = pose_opt.launches
+        got = pose_opt.pose_optimize(*args, cfg.camera, cfg.orb.scale_factor, rounds=rounds, iters=iters, **kw)
+        torch.cuda.synchronize()
+        assert pose_opt.launches == before + 1
+        want = pose_opt.pose_optimize_reference(*args, cfg.camera, cfg.orb.scale_factor, rounds=rounds, iters=iters,
+                                                **kw)
+        assert got.R.is_cuda and got.inliers.shape == (M,) and got.line_inliers.shape == (L,)
+        assert cs.rotation_gap(got.R.cpu().numpy()[None], want.R.cpu().numpy()[None]) < 1e-3
+        assert float((got.t - want.t).abs().max()) < 5e-3
+        assert abs(int(got.n_inliers) - int(want.n_inliers)) <= 3
+        assert float((got.inliers == want.inliers).float().mean()) >= 0.995
+        if L:
+            assert float((got.line_inliers == want.line_inliers).float().mean()) >= 0.995
+        assert int(got.n_inliers) == int(got.inliers.sum()) + int(got.line_inliers.sum())
+
+
+def test_pose_solve_batch_of_four_is_one_launch(cuda):
+    """torch.func.vmap of pose_optimize over 4 problems (the batched step's
+    shape: 2000 points, 128 lines, 4x10) is one launch of 4 blocks, each
+    solve bit-identical to the kernel on that problem alone."""
+    cs = _chip_smoke()
+    cfg = cs.bench_pipeline_config()
+    per = [_pose_inputs(cs, cfg, 10 + b, cfg.orb.n_features, cfg.lines.n_lines, cuda) for b in range(4)]
+    args = [torch.stack([p[0][i] for p in per]) for i in range(6)]
+    kw = {k: torch.stack([p[1][k] for p in per]) for k in per[0][1]}
+    before = pose_opt.launches
+    got = torch.func.vmap(lambda a, k: pose_opt.pose_optimize(*a, cfg.camera, cfg.orb.scale_factor, **k))(args, kw)
+    torch.cuda.synchronize()
+    assert pose_opt.launches == before + 1 and got.R.shape == (4, 3, 3)
+    for b, (a, k) in enumerate(per):
+        one = pose_opt.pose_optimize(*a, cfg.camera, cfg.orb.scale_factor, **k)
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y)
+
+
+def test_pose_solve_rejects_mixed_devices(cuda):
+    cs = _chip_smoke()
+    cfg = cs.loop_config()
+    args, _ = _pose_inputs(cs, cfg, 0, 100, 0, cuda)
+    args[3] = args[3].cpu()
+    with pytest.raises((ValueError, RuntimeError)):
+        pose_opt.pose_optimize(*args, cfg.camera)
 
 
 def test_fused_wrappers_reject_mixed_devices(cuda):

@@ -332,12 +332,12 @@ def test_stale_map_job_is_discarded_after_a_correction(monkeypatch):
     assert tr.map.n_keyframes() >= 2
     kf = tr.ref_kf
     calls.clear()
-    tr._map_jobs.append((kf, {"job": 1}, {"job": 1}, None, getattr(tr.map, "pose_epoch", 0)))
+    tr._map_jobs.append((kf, {"job": 1}, {"job": 1}, getattr(tr.map, "pose_epoch", 0)))
     tr.map.mark_all_pts_dirty()                  # what a loop correction does
     tr.poll_map_jobs()
     assert "tri" not in calls and "fuse" not in calls and not tr._map_jobs
     calls.clear()
-    tr._map_jobs.append((kf, {"job": 2}, {"job": 2}, None, tr.map.pose_epoch))
+    tr._map_jobs.append((kf, {"job": 2}, {"job": 2}, tr.map.pose_epoch))
     tr.poll_map_jobs()
     assert calls[:2] == ["tri", "fuse"]
 
