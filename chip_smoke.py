@@ -208,7 +208,10 @@ in its own process, and prints frames/s, host ms and the profiled
 kernels per frame side by side.  ``python3 chip_smoke.py
 --schedule-probe DIR N OUT`` repeats phases 11 (a) and 14 (a) N times
 through the package at DIR and prints how their ATEs and the deferred
-BAs' lags repeat.
+BAs' lags repeat.  ``python3 chip_smoke.py --pose-split [DIR]`` times the
+pose-solve kernel's serial step on one thread against one warp (and DIR's
+kernel), and splits an LM iteration into pass, sums, cluster barrier,
+gather, serial step and broadcast.
 Imports nothing of JAX.
 """
 
@@ -823,14 +826,85 @@ def phase_fused_kernels(cells, mono_cells=()):
 POSE_SCHEDULES = ((4, 10), (2, 8))
 POSE_PROBLEMS = 10                  # per cell and schedule (20 per cell)
 POSE_BATCH = 4                      # a batched multi-sequence step's B
-# float32 operations per observation and pass of csrc/pose_solve.cu,
-# counted from its source (a multiply-add 2, a division, square root, sine
-# or cosine 1): pass 1 (residual, Jacobian rows, weight, each row's 21 + 6
-# products into H and g), pass 2 (residual, chi2, weight), the gating
-# pass; per iteration the 28 + 1 block sums over 256 threads (255 adds
-# each) and thread 0's damped 6x6 LU solve and exponential map (~480).
+# float32 operations per observation of the function the pose solve
+# computes, counted from csrc/pose_solve.cu (a multiply-add 2, a division,
+# square root, sine or cosine 1): per LM iteration H, g and the error at
+# the pose (residual, Jacobian rows, weight, each row's 21 + 6 products)
+# and the error at the candidate (residual, chi2, weight), then one damped
+# 6x6 solve and exponential map (~480); per round the gating.  How a
+# kernel sums across threads is its own affair and not counted, so every
+# version of the kernel is held to one bound.
 POSE_FLOP = {"pass1_stereo": 266, "pass1_mono": 189, "pass2_stereo": 45, "pass2_mono": 42, "gate_stereo": 39,
-             "gate_mono": 36, "line_pass1": 227, "line_pass2": 65, "line_gate": 65, "iteration": 29 * 255 + 480}
+             "gate_mono": 36, "line_pass1": 227, "line_pass2": 65, "line_gate": 65, "iteration": 480}
+
+
+def pose_cells():
+    """The pose solve's cells: (name, config, M, L) of the point,
+    point+line and loop cells."""
+    return [(name, c, c.orb.n_features, c.lines.n_lines if c.lines.enabled else 0)
+            for name, c in (("point cell", kitti_config()), ("point+line cell", euroc_config()),
+                            ("loop cell", loop_config()))]
+
+
+def pose_op_args(cfg, seed, M, L):
+    """The operator's arguments for one seeded pose problem, on the card."""
+    import torch
+
+    from orb_line_slam_tpu_torch.backend import pose_opt
+
+    t = [torch.from_numpy(a).to("cuda") for a in pose_problem(cfg.camera, seed, M, L)]
+    return pose_opt.solve_args(*t[:6], cfg.camera, cfg.orb.scale_factor, *t[6:])
+
+
+def pose_batch_args(cfg, seed, M, L, B=POSE_BATCH):
+    """B seeded problems stacked: a batched step's one launch."""
+    import torch
+
+    per = [pose_op_args(cfg, seed + b, M, L) for b in range(B)]
+    return (*(torch.stack([p[i] for p in per]) for i in range(11)), *per[0][11:])
+
+
+def pose_shapes(cells, seed=900):
+    """The seven timed shapes of phase 3, one seeded problem each: per cell
+    4x10 with its lines and 2x8 without, then a batch of POSE_BATCH at the
+    first cell's M with the bench pipeline's lines.  [(label, args,
+    rounds, iters)]."""
+    shapes = []
+    for name, cfg, M, L in cells:
+        for rounds, iters in POSE_SCHEDULES:
+            lines = L if (rounds, iters) == POSE_SCHEDULES[0] else 0
+            shapes.append((f"{name}: M={M}, L={lines}, {rounds}x{iters}", pose_op_args(cfg, seed, M, lines),
+                           rounds, iters))
+            seed += 1
+    name, cfg, M, _ = cells[0]
+    L, (rounds, iters) = bench_pipeline_config().lines.n_lines, POSE_SCHEDULES[0]
+    shapes.append((f"{name}, a batch of {POSE_BATCH}: M={POSE_BATCH}x{M}, L={POSE_BATCH}x{L}, {rounds}x{iters}",
+                   pose_batch_args(cfg, seed, M, L), rounds, iters))
+    return shapes
+
+
+def pose_cluster(args):
+    """CTAs in a solve's cluster for these arguments, where the package
+    has clusters (None for a kernel of one block a solve)."""
+    from orb_line_slam_tpu_torch.backend import pose_opt
+
+    rule = getattr(pose_opt, "cluster_size", None)
+    return rule(args[2].shape[-2], args[6].shape[-2]) if rule else None
+
+
+def pose_shape_times(shapes):
+    """Per shape: the kernel's own device time (us, mean of 20 profiled
+    launches) and CUDA-event time (us, median of 20 windows of 10), its
+    cluster size and own us per LM iteration."""
+    from orb_line_slam_tpu_torch.backend import pose_opt
+
+    rows = {}
+    for label, args, rounds, iters in shapes:
+        kernel = lambda: pose_opt.pose_solve_cuda(*args, rounds, iters)  # noqa: E731
+        own = own_device_ms(kernel, "pose_solve_kernel", pose_opt) * 1e3
+        rows[label] = {"device_us": own, "events_us": cuda_times_ms(kernel, reps=10) * 1e3,
+                       "cluster_ctas": pose_cluster(args), "us_per_lm_iteration": own / (rounds * iters)}
+    return rows
 
 
 def _rodrigues(v):
@@ -915,19 +989,14 @@ def phase_pose_solve(cells):
     n_inliers within 3, point and line inlier masks equal on >= 99.5% of
     rows; the accept/reject decisions that differ are counted.  Then, per
     cell and schedule, CUDA-event times of kernel and plain version (plain,
-    kernel, kernel, plain), the kernel's own device time, the plain
-    version's device time and kernel count, and the bound.  Returns the
-    kernels-line record."""
+    kernel, kernel, plain), the kernel's own device time and its us per LM
+    iteration, the cluster size, the plain version's device time and
+    kernel count, and the bound.  Returns the kernels-line record."""
     import torch
 
     from orb_line_slam_tpu_torch.backend import pose_opt
 
-    dev = torch.device("cuda")
     records, gaps, flips, flipped_problems, n_problems = [], [], 0, 0, 0
-
-    def op_args(cfg, seed, M, L):
-        t = [torch.from_numpy(a).to(dev) for a in pose_problem(cfg.camera, seed, M, L)]
-        return pose_opt.solve_args(*t[:6], cfg.camera, cfg.orb.scale_factor, *t[6:])
 
     def hold(got, args, rounds, iters, what):
         """got: the kernel's outputs for args (one solve, or [B])."""
@@ -973,15 +1042,17 @@ def phase_pose_solve(cells):
         plain_own, plain_k = device_ms(plain)
         n_bytes, ops = pose_solve_need(args, rounds, iters)
         bytes_ms, ops_ms = n_bytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_FLOPS * 1e3
-        print(f"pose_solve ({name}, {rounds}x{iters}): kernel {ms * 1e3:.1f}/{ms2 * 1e3:.1f} us, plain "
-              f"{plain_ms:.2f}/{plain_ms2:.2f} ms per solve (CUDA events; plain, kernel, kernel, plain); own device "
-              f"time {own * 1e3:.1f} us in 1 kernel (plain: {plain_own:.2f} ms in {plain_k} kernels); bound "
-              f"{max(bytes_ms, ops_ms) * 1e3:.3f} us: {n_bytes} bytes = {bytes_ms * 1e3:.3f} us, {ops} float32 "
-              f"operations = {ops_ms * 1e3:.3f} us")
+        ctas, per_iter = pose_cluster(args), own * 1e3 / (rounds * iters)
+        print(f"pose_solve ({name}, {rounds}x{iters}): a cluster of {ctas} CTAs a solve; kernel {ms * 1e3:.1f}/"
+              f"{ms2 * 1e3:.1f} us, plain {plain_ms:.2f}/{plain_ms2:.2f} ms per solve (CUDA events; plain, kernel, "
+              f"kernel, plain); own device time {own * 1e3:.1f} us in 1 kernel, {per_iter:.2f} us per LM iteration "
+              f"(plain: {plain_own:.2f} ms in {plain_k} kernels); bound {max(bytes_ms, ops_ms) * 1e3:.3f} us: "
+              f"{n_bytes} bytes = {bytes_ms * 1e3:.3f} us, {ops} float32 operations = {ops_ms * 1e3:.3f} us")
         records.append({"shape": f"{name}, {rounds}x{iters}", "max_abs_err": worst, "ms": min(ms, ms2),
                         "plain_ms": min(plain_ms, plain_ms2), "bound_ms": max(bytes_ms, ops_ms),
                         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None,
-                        "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k})
+                        "device_ms": own, "plain_device_ms": plain_own, "plain_kernels": plain_k,
+                        "cluster_ctas": ctas, "us_per_lm_iteration": per_iter})
 
     seed = 100
     for name, cfg, M, L in cells:
@@ -990,17 +1061,16 @@ def phase_pose_solve(cells):
             worst, args = 0.0, None
             for _ in range(POSE_PROBLEMS):
                 seed += 1
-                args = op_args(cfg, seed, M, lines)
+                args = pose_op_args(cfg, seed, M, lines)
                 worst = max(worst, hold(pose_opt.pose_solve_cuda(*args, rounds, iters), args, rounds, iters, name))
             timed(f"{name}: M={M}, L={lines}", args, rounds, iters, worst)
-    # A batched multi-sequence step: B solves in one launch of B blocks.
+    # A batched multi-sequence step: B solves in one launch of B clusters.
     name, cfg, M, _ = cells[0]
     L, (rounds, iters) = bench_pipeline_config().lines.n_lines, POSE_SCHEDULES[0]
     worst = 0.0
     for _ in range(POSE_PROBLEMS // 2):
-        per = [op_args(cfg, seed + b, M, L) for b in range(POSE_BATCH)]
+        args = pose_batch_args(cfg, seed, M, L)
         seed += POSE_BATCH
-        args = (*(torch.stack([p[i] for p in per]) for i in range(11)), *per[0][11:])
         before = pose_opt.launches
         got = pose_opt.pose_solve_cuda(*args, rounds, iters)
         check(pose_opt.launches == before + 1 and got[0].shape == (POSE_BATCH, 3, 3),
@@ -2054,6 +2124,23 @@ def check_ba_lag(name, lags):
     check(max(lags, default=0) <= 1, f"{name}: deferred local BAs landed {lags} frames after their pack")
 
 
+def print_ba_wait(name, tracker, n_frames):
+    """The tracking thread's waits for a deferred local BA's solve
+    (Tracker.ba_waits, the timing stage "ba_wait"): ms per frame over the
+    run's n_frames (0 where a frame did not wait), p50 and max over those
+    frames, and the p50 of the waits themselves."""
+    per = np.zeros(n_frames)
+    for frame, seconds in tracker.ba_waits:
+        per[min(frame, n_frames - 1)] += seconds * 1e3
+    waits = [seconds * 1e3 for _, seconds in tracker.ba_waits]
+    row = {"waits": len(waits), "ms_per_frame": float(per.mean()), "p50_ms": float(np.percentile(per, 50)),
+           "max_ms": float(per.max()), "p50_ms_of_the_waits": float(np.median(waits)) if waits else 0.0}
+    print(f"{name}: the tracking thread waited for {len(waits)} deferred local BAs (ba_wait): "
+          f"{row['ms_per_frame']:.3f} ms per frame over {n_frames} frames, p50 {row['p50_ms']:.3f}, max "
+          f"{row['max_ms']:.3f} ms; p50 of the waits {row['p50_ms_of_the_waits']:.3f} ms")
+    return row
+
+
 def phase_shipping_pipeline(poses, frames, pinned_ate):
     """Phase 11 (a): bench.py::_bench_pipeline on the card: System(cfg,
     device="cuda") with bench.py's configuration over phase 5's N_FRAMES
@@ -2069,6 +2156,7 @@ def phase_shipping_pipeline(poses, frames, pinned_ate):
     check(ate <= bound, f"shipping pipeline: ATE {ate:.5f} m above {bound:.5f} m")
     check(int(slam.map.ln_valid.sum()) > 0, "shipping pipeline: lines are on, yet the map holds no line")
     check_ba_lag("shipping pipeline", slam.tracker.ba_lag_frames)
+    print_ba_wait("shipping pipeline", slam.tracker, len(frames))
     return launches, fps, per_frame, ate
 
 
@@ -2118,6 +2206,7 @@ def phase_shipping_circuit(poses, frames, pinned_ate):
           f"shipping circuit: no global BA solved on its worker and applied by poll_global_ba: {seen}")
     check(ate <= bound, f"shipping circuit: ATE {ate:.5f} m above {bound:.5f} m")
     check_ba_lag("shipping circuit", slam.tracker.ba_lag_frames)
+    print_ba_wait("shipping circuit", slam.tracker, len(frames))
     return launches, fps, per_frame, ate, slam.n_loops_closed
 
 
@@ -2324,6 +2413,7 @@ def phase_multiseq_correctness(poses, frames, pipeline_ate):
               f"{pipeline_ate:.5f} m)")
         check(t.state == "OK", f"multi-sequence B=2, sequence {b}: final state {t.state}")
         check_ba_lag(f"multi-sequence B=2, sequence {b}", t.ba_lag_frames)
+        print_ba_wait(f"multi-sequence B=2, sequence {b}", t, n)
         check(ate <= bound, f"multi-sequence B=2, sequence {b}: ATE {ate:.5f} m above {bound:.5f} m")
     host_probe("after multi-sequence B=2")
     return launches, ates, print_aggregate("multi-sequence B=2", 2, frame_ms, batched)
@@ -2996,10 +3086,12 @@ def tree_probe(tree, out_path):
     slices (their frames, configs and pinned schedule, each with phase 8's
     profile window) driven through the package of the tree at DIR by this
     script's functions, the launch checks off (another tree's kernels
-    differ).  Writes to OUT one JSON object: per slice frames/s, the
-    tracking thread's host ms per frame, the tracker's track_step host ms
-    per call, ATE, launches, and the window's kernels and device ms per
-    frame of the whole frame, the tracking step and its pose solves."""
+    differ).  Writes to OUT one JSON object: the pose-solve kernel's own
+    device and event us at phase 3's seven shapes (pose_shapes); per slice
+    frames/s, the tracking thread's host ms per frame, the tracker's
+    track_step host ms per call, ATE, launches, and the window's kernels
+    and device ms per frame of the whole frame, the tracking step and its
+    pose solves."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     cfg, lcfg = kitti_config(), euroc_config()
@@ -3012,7 +3104,7 @@ def tree_probe(tree, out_path):
     pkg = os.path.dirname(os.path.abspath(orb_line_slam_tpu_torch.__file__))
     check(pkg == os.path.join(tree, "orb_line_slam_tpu_torch"), f"--tree-probe {tree} imported the package at {pkg}")
     _build.build()
-    out = {"tree": tree, "sources": list(_build.SOURCES)}
+    out = {"tree": tree, "sources": list(_build.SOURCES), "pose_solve": pose_shape_times(pose_shapes(pose_cells()))}
     for key, c, job, fr, dt in (("points", cfg, jobs[0], frames, 0.1), ("lines", lcfg, jobs[1], lframes, 0.05)):
         window = ProfileWindow(f"{key} slice of {tree}")
         slam, launches, fps, ate, per_frame = run_slice(c, job[1], fr, f"{key} slice", dt, window=window,
@@ -3028,9 +3120,10 @@ def compare_parent(parent):
     """``python3 chip_smoke.py --compare-parent DIR``: --tree-probe of the
     tree at DIR (an unpacked parent commit) and of this checkout in turns,
     parent, this, this, parent, each in a process of its own on the same
-    card; prints each probe and, per slice, this tree's figures beside the
-    parent's (kernels per frame of the tracking step as a share of the
-    parent's)."""
+    card; prints each probe, the pose-solve kernel's own device time at
+    phase 3's seven shapes side by side, and, per slice, this tree's
+    figures beside the parent's (kernels per frame of the tracking step as
+    a share of the parent's)."""
     import tempfile
 
     phase_device()
@@ -3055,7 +3148,135 @@ def compare_parent(parent):
                                                        rows[2][cell]["frame_host_ms"]["p50"]]}
         tk = summary[cell]["track_step_kernels_per_frame"]
         summary[cell]["track_step_kernels_share_of_parent"] = max(tk["this"]) / min(tk["parent"])
+    summary["pose_solve_device_us"] = {
+        shape: {"parent": [rows[0]["pose_solve"][shape]["device_us"], rows[3]["pose_solve"][shape]["device_us"]],
+                "this": [rows[1]["pose_solve"][shape]["device_us"], rows[2]["pose_solve"][shape]["device_us"]],
+                "cluster_ctas": rows[1]["pose_solve"][shape]["cluster_ctas"]}
+        for shape in rows[0]["pose_solve"]}
+    for shape, row in summary["pose_solve_device_us"].items():
+        print(f"compare parent, pose solve {shape}: own device us parent {row['parent'][0]:.1f} / "
+              f"{row['parent'][1]:.1f}, this {row['this'][0]:.1f} / {row['this'][1]:.1f} "
+              f"({row['cluster_ctas']} CTAs a solve)")
     print(json.dumps({"compare_parent": summary}))
+
+
+# --pose-split's builds of csrc/pose_solve.cu: the serial step on one
+# thread (the default) or on one warp, each also with the split counters.
+POSE_VARIANTS = {"thread": (), "warp": ("-DPOSE_SOLVE_WARP_SOLVE=1",)}
+POSE_SPLIT_SLOTS = ("pass", "warp and CTA sums", "cluster barrier", "gather", "serial step", "broadcast")
+
+
+def pose_split(parent=None):
+    """``python3 chip_smoke.py --pose-split [DIR]``: the pose-solve kernel's
+    serial step on one thread against one warp, and where an LM iteration's
+    time goes.  Builds csrc/pose_solve.cu four ways (thread, warp, each
+    also with POSE_SOLVE_SPLIT=1) and, with DIR (an unpacked parent
+    commit), DIR's own pose_solve.cu, all nvcc at once; holds every build
+    to the plain version at phase 3's seven shapes (the pose contract; it
+    prints which builds give the thread build's bits); times each
+    build's own device time there in turns (parent, thread, warp, warp,
+    thread, parent); then per shape the split builds' cycle counters of
+    CTA 0's thread 0 (POSE_SPLIT_SLOTS), as us per pass from the split
+    build's own device time."""
+    import ctypes
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    phase_device()
+    import orb_line_slam_tpu_torch  # noqa: F401  (sets the fp32 policy)
+    from orb_line_slam_tpu_torch.backend import pose_opt
+    from orb_line_slam_tpu_torch.ops import _build
+
+    src = str(_build.CSRC / "pose_solve.cu")
+    jobs = {name: (src, flags) for name, flags in POSE_VARIANTS.items()}
+    jobs.update({f"{name}+split": (src, (*flags, "-DPOSE_SOLVE_SPLIT=1")) for name, flags in POSE_VARIANTS.items()})
+    if parent is not None:
+        jobs["parent"] = (os.path.join(os.path.abspath(parent), "orb_line_slam_tpu_torch", "csrc", "pose_solve.cu"), ())
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name, (path, flags) in jobs.items():
+        out = _build.BUILD_DIR / f"libpose_solve_{name.replace('+', '_')}.so"
+        cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
+               *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), path]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+    libs = {}
+    for name, (proc, out) in procs.items():
+        stdout, stderr = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on the {name} build of pose_solve.cu:\n{stderr[-3000:]}")
+        usage = [ln.split(":", 1)[-1].strip() for ln in (stdout + stderr).splitlines() if "Used" in ln or "spill" in ln]
+        print(f"pose split: {name} built {time.perf_counter() - t0:.1f} s after the start (ptxas: {'; '.join(usage)})")
+        lib = ctypes.CDLL(str(out))
+        lib.pose_solve_launch.argtypes = [*pose_opt._ARGTYPES, ctypes.c_void_p]
+        lib.pose_solve_launch.restype = ctypes.c_int
+        if "split" in name:
+            lib.pose_solve_split.argtypes = [ctypes.c_void_p]
+            lib.pose_solve_split.restype = ctypes.c_int
+        libs[name] = lib
+
+    def use(name):
+        _build._FUNCTIONS["pose_solve"] = libs[name].pose_solve_launch
+
+    shapes = pose_shapes(pose_cells())
+    for label, args, rounds, iters in shapes:
+        outs = {}
+        for name in libs:
+            use(name)
+            outs[name] = pose_opt.pose_solve_cuda(*args, rounds, iters)
+        torch.cuda.synchronize()
+        batched = args[0].dim() == 3
+        for b in range(args[0].shape[0] if batched else 1):
+            one = [x[b] for x in args[:11]] if batched else list(args[:11])
+            want = pose_opt.pose_solve_plain(*one, *args[11:], rounds, iters)
+            for name, got in outs.items():
+                k = [x[b] for x in got] if batched else list(got)
+                rad = rotation_gap(k[0].cpu().numpy()[None], want[0].cpu().numpy()[None])
+                dt = float((k[1] - want[1]).abs().max())
+                check(rad < 1e-3 and dt < 5e-3 and abs(int(k[4]) - int(want[4])) <= 3,
+                      f"pose split: {name} build at {label}, solve {b}: {rad:.2e} rad, {dt:.2e} m, "
+                      f"inliers {int(k[4])} / {int(want[4])}")
+        same = [name for name in libs if name not in ("thread", "parent")
+                and all(torch.equal(x, y) for x, y in zip(outs[name], outs["thread"]))]
+        print(f"pose split, {label}: every build within the pose contract of the plain version; bit-identical to "
+              f"the thread build: {same}")
+
+    order = [n for n in ("parent", "thread", "warp") if n in libs]
+    order = order + order[::-1]
+    times = {label: {} for label, *_ in shapes}
+    for name in order:
+        use(name)
+        for label, args, rounds, iters in shapes:
+            own = own_device_ms(lambda: pose_opt.pose_solve_cuda(*args, rounds, iters), "pose_solve_kernel",
+                                pose_opt) * 1e3
+            times[label].setdefault(name, []).append(own)
+    split = {}
+    n_slots = len(POSE_SPLIT_SLOTS)
+    counters = (ctypes.c_ulonglong * (n_slots + 1))()
+    for name in POSE_VARIANTS:
+        lib = libs[f"{name}+split"]
+        use(f"{name}+split")
+        for label, args, rounds, iters in shapes:
+            check(lib.pose_solve_split(counters) == 0, "pose split: reading the counters failed")
+            own = own_device_ms(lambda: pose_opt.pose_solve_cuda(*args, rounds, iters), "pose_solve_kernel",
+                                pose_opt) * 1e3
+            torch.cuda.synchronize()
+            check(lib.pose_solve_split(counters) == 0, "pose split: reading the counters failed")
+            passes = rounds * (iters + 1) + 1
+            n_launch = counters[n_slots] / passes       # own_device_ms's calls, a window taken again included
+            cyc = [counters[k] / n_launch for k in range(n_slots)]
+            us_per_cycle = own / sum(cyc)
+            split.setdefault(label, {})[name] = {
+                "device_us": own, "passes": passes, "sm_mhz": sum(cyc) / own,
+                **{f"{slot}_us_per_pass": c * us_per_cycle / passes for slot, c in zip(POSE_SPLIT_SLOTS, cyc)}}
+    for label, *_ in shapes:
+        print(f"pose split, {label}: own device us " + ", ".join(
+            f"{n} {' / '.join(f'{v:.1f}' for v in times[label][n])}" for n in times[label]))
+        for name, row in split[label].items():
+            print(f"pose split, {label}, {name} step: {row['passes']:.0f} passes, us per pass "
+                  + ", ".join(f"{slot} {row[f'{slot}_us_per_pass']:.3f}" for slot in POSE_SPLIT_SLOTS)
+                  + f" (split build {row['device_us']:.1f} us, {row['sm_mhz']:.0f} MHz)")
+    print(json.dumps({"pose_split": {"device_us": times, "split": split}}), flush=True)
 
 
 SCHEDULE_REPLAY_ABOVE_M = 0.02    # --schedule-probe replays the first B = 2 run above this
@@ -3353,8 +3574,7 @@ def main():
     cells = (("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg))
     kern = {"patch_tiles": phase_kernel(cells)}
     kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells, (("TUM cell", tcfg),))
-    kern["pose_solve"] = phase_pose_solve([(name, c, c.orb.n_features, c.lines.n_lines if c.lines.enabled else 0)
-                                           for name, c in cells])
+    kern["pose_solve"] = phase_pose_solve(pose_cells())
     done("phases 1-3")
     metrics["stereo_frontend_fps"] = phase_frame(cfg, frames[0])
     phase_stereo_match_kernel_vs_plain(cfg, frames[0])
@@ -3441,5 +3661,7 @@ if __name__ == "__main__":
         tree_probe(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--schedule-probe"] and len(sys.argv) == 5:
         schedule_probe(sys.argv[2], int(sys.argv[3]), sys.argv[4])
+    elif sys.argv[1:2] == ["--pose-split"] and len(sys.argv) in (2, 3):
+        pose_split(sys.argv[2] if len(sys.argv) == 3 else None)
     else:
         main()

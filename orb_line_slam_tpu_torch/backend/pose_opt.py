@@ -14,9 +14,10 @@ version (``pose_solve_plain``: the analytic Jacobians of
 ``residuals.py``, 6x6 normal equations solved with ``solve_ex``, which
 does not synchronize with the host, a rejected step keeping the pose as
 ``jnp.where`` does in the JAX scan); CUDA tensors launch the hand-written
-kernel ``csrc/pose_solve.cu`` — the whole schedule in one launch — or
-raise.  The operator has a vmap rule, so under ``torch.func.vmap`` (the
-batched multi-sequence step) the B solves are one launch of B blocks.
+kernel ``csrc/pose_solve.cu`` — the whole schedule in one launch of one
+thread-block cluster of ``cluster_size(M, L)`` CTAs — or raise.  The
+operator has a vmap rule, so under ``torch.func.vmap`` (the batched
+multi-sequence step) the B solves are one launch of B clusters.
 ``launches`` counts kernel launches.  ``pose_optimize_reference`` is the
 plain version behind ``pose_optimize``'s signature.
 
@@ -47,6 +48,23 @@ _N_TENSORS = 11
 
 # Kernel launches since import (or since the caller last reset it).
 launches = 0
+
+# The kernel's launch rule (csrc/pose_solve.cu: kThreads, kMaxCluster,
+# kHeaderBytes, kMaxSharedBytes, cluster_size, shared_bytes): a CTA of 256
+# threads holds its share of the rows in shared memory, 30 bytes a point
+# and 42 a line after a 4096-byte header, at most 227 KB.
+_THREADS, _MAX_CLUSTER, _HEADER_BYTES, MAX_SHARED_BYTES = 256, 8, 4096, 232448
+
+
+def cluster_size(M: int, L: int) -> int:
+    """CTAs in the cluster of one solve of M points and L lines."""
+    return min(_MAX_CLUSTER, max(1, -(-(M + L) // _THREADS)))
+
+
+def shared_bytes(M: int, L: int, rounds: int, iters: int) -> int:
+    """Shared memory one CTA of that cluster needs."""
+    C = cluster_size(M, L)
+    return _HEADER_BYTES + 30 * -(-M // C) + 42 * -(-L // C) + rounds * iters
 
 
 class PoseOptResult(NamedTuple):
@@ -148,7 +166,8 @@ def pose_solve_plain(R0, t0, points_w, obs_uvur, p_info, valid, line_start_w, li
 def _check_inputs(args, rounds: int, iters: int, kernel: bool):
     """Shapes, types and devices of the operator's tensor arguments: one
     solve (R0 [3, 3]) or B (R0 [B, 3, 3], every tensor with a leading [B]).
-    The kernel also wants every tensor contiguous."""
+    The kernel also wants every tensor contiguous, and a CTA's share of
+    the rows within its shared memory (M up to ~60,000 without lines)."""
     R0, t0, pts, obs, p_info, valid, ls, le, lobs, l_info, l_valid = args
     if R0.dim() not in (2, 3) or tuple(R0.shape[-2:]) != (3, 3):
         raise ValueError(f"want R0 [3, 3] or [B, 3, 3], got {tuple(R0.shape)}")
@@ -170,13 +189,16 @@ def _check_inputs(args, rounds: int, iters: int, kernel: bool):
             raise ValueError(f"pose solve: argument {i} is not contiguous")
     if rounds < 1 or iters < 1:
         raise ValueError(f"want rounds and iters >= 1, got {rounds}, {iters}")
+    if kernel and shared_bytes(M, L, rounds, iters) > MAX_SHARED_BYTES:
+        raise ValueError(f"pose solve kernel: M = {M} points and L = {L} lines need "
+                         f"{shared_bytes(M, L, rounds, iters)} bytes of shared memory a CTA, above {MAX_SHARED_BYTES}")
 
 
 def pose_solve_cuda(R0, t0, points_w, obs_uvur, p_info, valid, line_start_w, line_end_w, line_obs, l_info,
                     line_valid, fx: float, fy: float, cx: float, cy: float, bf: float, rounds: int, iters: int):
     """Launch the kernel on the current stream (no synchronisation): one
     solve, or B with a leading [B] on every tensor (one launch of B
-    blocks).  Returns what ``pose_solve_plain`` returns, with the same
+    clusters).  Returns what ``pose_solve_plain`` returns, with the same
     leading dimensions."""
     global launches
     args = (R0, t0, points_w, obs_uvur, p_info, valid, line_start_w, line_end_w, line_obs, l_info, line_valid)

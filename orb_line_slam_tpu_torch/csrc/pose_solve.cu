@@ -1,8 +1,8 @@
 // The per-frame pose solve for Hopper (sm_90a): motion-only bundle
 // adjustment of one SE3 pose against M point and L line observations, the
-// whole Levenberg-Marquardt schedule in one launch.  One thread block per
-// solve; a batch of B solves (the batched multi-sequence step) is one
-// launch of B blocks.
+// whole Levenberg-Marquardt schedule in one launch.  One thread-block
+// cluster of C CTAs per solve; a batch of B solves (the batched
+// multi-sequence step) is one launch of B clusters.
 //
 // Replaces orb_line_slam_tpu/backend/pose_opt.py::pose_optimize (jitted
 // at :54-57, the LM scan body :93-138, the gating :146-152), which on the
@@ -24,33 +24,90 @@
 //     p_in = valid & c <= (stereo ? 7.815 : 5.991); l_in = l_valid & c <= 5.991
 //   n_in = |p_in| + |l_in|
 //
-// Each thread walks the observations with a stride of the block size and
-// keeps its partial sums of the 21 upper entries of H, the 6 of g and err0
-// in registers; the block reduces them in a fixed order (shuffles within a
-// warp, then the warps in index order), so a rerun gives the same bits.
-// Thread 0 solves the 6x6 system and forms the candidate pose; a second
-// pass over the observations gives err1.  The inlier masks live in the
-// output arrays between rounds: each thread reads and writes only its own
-// rows.  sinf, cosf, sqrtf and divisions are the IEEE ones (no fast math).
+// What bounds it: latency, not bytes or operations.  A 4x10 solve at the
+// point cell (M = 2000) needs ~20 M float32 operations and reads ~60 KB,
+// 0.3 us of the card's float32 rate; but it is a chain of 40 dependent LM
+// steps, each a pass over every observation, a reduction of 28 sums over
+// all of them, and a 6x6 solve and exponential map that nothing else can
+// overlap.  The time is that chain's latency.  What the design does about it:
+//
+// 1. One cluster of C CTAs (256 threads each) on neighbouring SMs per
+//    solve, grid B x C, the cluster dimension (C, 1, 1) set at launch.
+//    C = min(8, ceil((M + L) / 256)): a thread holds one row up to 2,048
+//    rows (8 CTAs at the point cell's M = 2000), more above; 8 is the
+//    portable cluster size.  Each CTA owns a contiguous share of the
+//    point rows and of the line rows.
+// 2. Rows staged once: each CTA copies its share (points, observations,
+//    information weights, valid flags, line endpoints and coefficients)
+//    into shared memory with coalesced loads, and keeps the inlier masks
+//    there.  Inside the LM schedule nothing touches global memory; the
+//    outputs are written at the end.  Shared memory caps the rows:
+//    pose_opt.py::_check_inputs refuses a shape whose share does not fit.
+// 3. One pass and one reduction per LM iteration.  The pass at the
+//    candidate pose computes err1 and also H, g and the error there (28
+//    sums): on accept they are exactly the next iteration's H, g and err0
+//    (the same arithmetic at the same pose bits, masks and Huber flag);
+//    on reject the kept sums (shared memory) are solved again with lam x 4.
+//    Each round starts with one pass at its pose that also does the
+//    previous round's gating (the chi2 it needs is the pass's own); one
+//    last gating pass counts the inliers.  A solve is rounds x (iters + 1)
+//    + 1 passes (45 at 4x10, 19 at 2x8), where a pass of the PR 10
+//    kernel per LM step was followed by a second one for err1 (88 at 4x10).
+//    The reduction: a butterfly reduce-scatter inside each warp (31
+//    shuffles for 32 slots, lane k ends with slot k), the warps in index
+//    order, then the C CTAs' partials in rank order through distributed
+//    shared memory after one cluster barrier.  Every CTA sums in the same
+//    order, so all hold the same bits, solve the same 6x6 system to the
+//    same candidate and need no broadcast; a rerun, or a solve's position
+//    in a batch, gives the same bits.  The partials are double-buffered
+//    by the reduction's parity, so one cluster barrier an iteration
+//    suffices (a peer reads buffer p before it arrives at the next
+//    barrier, and nobody writes p again before passing that barrier).
+// 4. The serial step (lane 0 of warp 0 in each CTA): the accept test, the
+//    6x6 Gaussian elimination with partial pivoting (the first largest
+//    |pivot|, as LAPACK's getrf) fully unrolled in registers, its row
+//    swaps as selects, and the exponential map.  POSE_SOLVE_WARP_SOLVE=1
+//    builds the elimination on one warp instead (rows on lanes, the pivot
+//    search and the swaps by shuffles, the same tie-break and the same
+//    arithmetic); chip_smoke.py --pose-split times both and prints the
+//    split of an iteration (pass, reduction, serial step, broadcast),
+//    built with POSE_SOLVE_SPLIT=1.  The one-thread step is the default:
+//    see PERF.md for what each costs.
+// 5. The shared state is one struct behind one pointer (shared_base()),
+//    and the cluster primitives are three small functions (cluster_rank,
+//    cluster_barrier, peer_state): tests/test_torch_pose_solve.py compiles
+//    this source for the host with its own versions of those and of the
+//    warp shuffles, one host thread per CUDA thread and a shared state per
+//    CTA, and holds it to the plain version.
+//
+// sinf, cosf, sqrtf and divisions are the IEEE ones (no fast math).
 // Against the plain version (backend/pose_opt.py::pose_solve_plain) only
 // the order of the sums differs, so an accept/reject or gating decision
 // can flip where it is decided by the last bits; the result is held to the
 // pose contract (1e-3 rad, 5e-3 m, inlier counts within 3).
-//
-// What bounds it: latency, not bytes or operations.  A solve reads its
-// observations (~28 bytes a point) once per pass, 2 passes per iteration,
-// and each iteration waits on two block reductions and one thread's 6x6
-// solve and exponential map.  What the design does about it: the whole
-// schedule stays on the device in one launch (the plain version launches
-// ~290 kernels an iteration), and a batch of solves runs one block each.
 
+#ifndef POSE_SOLVE_HOST
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+extern __shared__ __align__(16) unsigned char pose_solve_smem[];
+#endif
+
+#ifndef POSE_SOLVE_WARP_SOLVE
+#define POSE_SOLVE_WARP_SOLVE 0
+#endif
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kAcc = 28;            // H upper (21), g (6), err0
+constexpr int kMaxCluster = 8;               // the portable cluster size
+constexpr int kAcc = 28;                     // H upper (21), g (6), err
+constexpr int kErr = 27;
+constexpr int kCount = 28;                   // the gating passes' inlier count
+constexpr int kSlots = 32;                   // one per lane
+constexpr int kHeaderBytes = 4096;           // the Shared struct, rows after it
+constexpr int kMaxSharedBytes = 232448;      // 227 KB a block on Hopper
 constexpr float kChi2Mono = 5.991f;
 constexpr float kChi2Stereo = 7.815f;
 constexpr float kSqrtChi2Mono = 2.4476519f;    // float32(sqrt(5.991))
@@ -59,6 +116,118 @@ constexpr float kSqrtChi2Stereo = 2.7955322f;  // float32(sqrt(7.815))
 struct Cam {
   float fx, fy, cx, cy, bf;
 };
+
+// A CTA's shared state; its rows follow at kHeaderBytes.
+struct Shared {
+  float warp[kWarps][kSlots];   // each warp's sums, slot k on lane k
+  float part[2][kSlots];        // the CTA's sums by reduction parity (peers read them)
+  float keep[kAcc];             // H, g and err at the kept pose
+  float R[9], t[3];             // the kept pose
+  float R2[9], t2[3];           // the candidate pose
+};
+static_assert(sizeof(Shared) <= kHeaderBytes, "Shared outgrew its header");
+
+// CTAs per solve and shared bytes per CTA (the launcher's and
+// pose_opt.py's rule).
+__host__ __device__ inline int cluster_size(int M, int L) {
+  const int c = (M + L + kThreads - 1) / kThreads;
+  return c < 1 ? 1 : (c > kMaxCluster ? kMaxCluster : c);
+}
+
+__host__ __device__ inline int shared_bytes(int M, int L, int C, int rounds, int iters) {
+  const int np = (M + C - 1) / C, nl = (L + C - 1) / C;
+  return kHeaderBytes + 30 * np + 42 * nl + rounds * iters;
+}
+
+#ifndef POSE_SOLVE_HOST
+// The cluster primitives.
+__device__ __forceinline__ unsigned char* shared_base() { return pose_solve_smem; }
+__device__ __forceinline__ int cluster_rank() {
+  return static_cast<int>(cooperative_groups::this_cluster().block_rank());
+}
+__device__ __forceinline__ void cluster_barrier() { cooperative_groups::this_cluster().sync(); }
+template <typename T>
+__device__ __forceinline__ T* peer_state(T* p, int rank) {
+  return cooperative_groups::this_cluster().map_shared_rank(p, static_cast<unsigned>(rank));
+}
+#endif
+
+// Where an LM iteration's time goes, seen from CTA 0's thread 0 (built
+// with POSE_SOLVE_SPLIT=1 only): cycles of the pass, the warp and CTA sums,
+// the cluster barrier, the gather from the peers, the serial step and the
+// broadcast of the candidate; then the passes.
+constexpr int kSplitSlots = 6;
+#ifdef POSE_SOLVE_SPLIT
+__device__ unsigned long long g_split[kSplitSlots + 1];
+struct Split {
+  bool on;
+  long long t;
+  unsigned long long c[kSplitSlots];
+  __device__ void start() {
+    on = blockIdx.x == 0 && threadIdx.x == 0;
+    t = clock64();
+    for (int k = 0; k < kSplitSlots; ++k) c[k] = 0;
+  }
+  __device__ void mark(int slot) {
+    if (on) {
+      const long long now = clock64();
+      c[slot] += static_cast<unsigned long long>(now - t);
+      t = now;
+    }
+  }
+  __device__ void flush(int passes) {
+    if (on) {
+      for (int k = 0; k < kSplitSlots; ++k) g_split[k] += c[k];
+      g_split[kSplitSlots] += static_cast<unsigned long long>(passes);
+    }
+  }
+};
+#else
+struct Split {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
+
+// This CTA's rows in shared memory.
+struct Rows {
+  int np, nl;
+  float *pts, *obs, *p_info, *ls, *le, *lobs, *l_info;
+  unsigned char *p_valid, *p_in, *l_valid, *l_in, *steps;
+};
+
+__device__ __forceinline__ Rows carve(unsigned char* base, int np_max, int nl_max, int np, int nl) {
+  Rows r;
+  r.np = np;
+  r.nl = nl;
+  float* f = reinterpret_cast<float*>(base + kHeaderBytes);
+  r.pts = f;
+  f += 3 * np_max;
+  r.obs = f;
+  f += 3 * np_max;
+  r.p_info = f;
+  f += np_max;
+  r.ls = f;
+  f += 3 * nl_max;
+  r.le = f;
+  f += 3 * nl_max;
+  r.lobs = f;
+  f += 3 * nl_max;
+  r.l_info = f;
+  f += nl_max;
+  unsigned char* u = reinterpret_cast<unsigned char*>(f);
+  r.p_valid = u;
+  u += np_max;
+  r.p_in = u;
+  u += np_max;
+  r.l_valid = u;
+  u += nl_max;
+  r.l_in = u;
+  u += nl_max;
+  r.steps = u;
+  return r;
+}
 
 // IRLS weight of the Huber kernel: 1 inside delta, delta / |e| outside.
 __device__ __forceinline__ float huber_weight(float chi2, float delta2, float delta) {
@@ -87,8 +256,8 @@ __device__ __forceinline__ void point_residual(const Cam& cam, const float* R, c
   r[2] = stereo ? (u - cam.bf * inv_z) - o[2] : 0.0f;
 }
 
-// Signed distance of one projected endpoint to the observed line (a, b, c);
-// with J != nullptr also its row of the Jacobian w.r.t. [rho, phi].
+// Signed distance of one projected endpoint to the observed line (a, b, c)
+// and its row of the Jacobian w.r.t. [rho, phi].
 __device__ __forceinline__ float line_endpoint(const Cam& cam, const float* R, const float* t, const float* p,
                                                const float* ln, float* J) {
   float xc[3];
@@ -96,20 +265,18 @@ __device__ __forceinline__ float line_endpoint(const Cam& cam, const float* R, c
   const float z = clamp_depth(xc[2]);
   const float u = cam.fx * xc[0] / z + cam.cx;
   const float v = cam.fy * xc[1] / z + cam.cy;
-  if (J != nullptr) {
-    const float a = ln[0] * cam.fx / z, b = ln[1] * cam.fy / z;
-    const float d[3] = {a, b, -(a * xc[0] + b * xc[1]) / z};
-    J[0] = d[0];
-    J[1] = d[1];
-    J[2] = d[2];
-    J[3] = xc[1] * d[2] - xc[2] * d[1];   // cross(xc, d)
-    J[4] = xc[2] * d[0] - xc[0] * d[2];
-    J[5] = xc[0] * d[1] - xc[1] * d[0];
-  }
+  const float a = ln[0] * cam.fx / z, b = ln[1] * cam.fy / z;
+  const float d[3] = {a, b, -(a * xc[0] + b * xc[1]) / z};
+  J[0] = d[0];
+  J[1] = d[1];
+  J[2] = d[2];
+  J[3] = xc[1] * d[2] - xc[2] * d[1];   // cross(xc, d)
+  J[4] = xc[2] * d[0] - xc[0] * d[2];
+  J[5] = xc[0] * d[1] - xc[1] * d[0];
   return ln[0] * u + ln[1] * v + ln[2];
 }
 
-// acc[H upper, g, err] += w J^T (J, r) for one residual row.
+// acc[H upper, g] += w J^T (J, r) for one residual row.
 __device__ __forceinline__ void accumulate_row(float* acc, const float* J, float r, float w) {
   float wj[6];
 #pragma unroll
@@ -124,73 +291,131 @@ __device__ __forceinline__ void accumulate_row(float* acc, const float* J, float
   for (int i = 0; i < 6; ++i) acc[21 + i] += wj[i] * r;
 }
 
-// Sum of each of N per-thread values over the block, in a fixed order:
-// a shuffle tree inside each warp, then the warps' sums in warp order.
-// Every thread must call it; out[] (shared) holds the N sums afterwards.
-template <int N, typename T>
-__device__ __forceinline__ void block_sum(T* v, T* scratch, T* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// One pass over this thread's rows at (R, t), adding H, g and the error
+// into acc.  kGate: first set the masks to valid & chi2 <= threshold at
+// this pose, and count the inliers into acc[kCount]; kSums false: only
+// that.
+template <bool kGate, bool kSums>
+__device__ __forceinline__ void pass(const Cam& cam, const Rows& rows, const float* R, const float* t, bool huber,
+                                     float* acc) {
+  for (int k = threadIdx.x; k < rows.np + rows.nl; k += kThreads) {
+    if (k < rows.np) {
+      const int i = k;
+      if (!(kGate ? rows.p_valid[i] : rows.p_in[i])) {
+        if (kGate) rows.p_in[i] = 0;
+        continue;
+      }
+      const float* o = rows.obs + 3 * i;
+      const bool stereo = o[2] > 0.0f;
+      float r[3], xc[3], inv_z;
+      point_residual(cam, R, t, rows.pts + 3 * i, o, stereo, r, xc, inv_z);
+      const float info = rows.p_info[i];
+      const float c = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * info;
+      if (kGate) {
+        const bool in = c <= (stereo ? kChi2Stereo : kChi2Mono);
+        rows.p_in[i] = in ? 1 : 0;
+        if (!in) continue;
+        acc[kCount] += 1.0f;
+      }
+      if (!kSums) continue;
+      const float hw = huber ? huber_weight(c, kChi2Stereo, kSqrtChi2Stereo) : 1.0f;
+      const float w = hw * info;
+      acc[kErr] += c * hw;
+      const float x_z = xc[0] * inv_z, y_z = xc[1] * inv_z;
+      const float jx[3][3] = {
+          {cam.fx * inv_z, 0.0f, -cam.fx * x_z * inv_z},
+          {0.0f, cam.fy * inv_z, -cam.fy * y_z * inv_z},
+          {cam.fx * inv_z, 0.0f, (-cam.fx * x_z + cam.bf * inv_z) * inv_z},
+      };
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+      for (int d = 0; d < 3; ++d) {
+        if (d == 2 && !stereo) continue;
+        const float J[6] = {jx[d][0], jx[d][1], jx[d][2],
+                            xc[1] * jx[d][2] - xc[2] * jx[d][1],     // cross(xc, jx)
+                            xc[2] * jx[d][0] - xc[0] * jx[d][2],
+                            xc[0] * jx[d][1] - xc[1] * jx[d][0]};
+        accumulate_row(acc, J, r[d], w);
+      }
+    } else {
+      const int l = k - rows.np;
+      if (!(kGate ? rows.l_valid[l] : rows.l_in[l])) {
+        if (kGate) rows.l_in[l] = 0;
+        continue;
+      }
+      float J0[6], J1[6];
+      const float* ln = rows.lobs + 3 * l;
+      const float r0 = line_endpoint(cam, R, t, rows.ls + 3 * l, ln, J0);
+      const float r1 = line_endpoint(cam, R, t, rows.le + 3 * l, ln, J1);
+      const float info = rows.l_info[l];
+      const float c = (r0 * r0 + r1 * r1) * info;
+      if (kGate) {
+        const bool in = c <= kChi2Mono;
+        rows.l_in[l] = in ? 1 : 0;
+        if (!in) continue;
+        acc[kCount] += 1.0f;
+      }
+      if (!kSums) continue;
+      const float w = huber ? huber_weight(c, kChi2Mono, kSqrtChi2Mono) * info : info;
+      acc[kErr] += c;
+      accumulate_row(acc, J0, r0, w);
+      accumulate_row(acc, J1, r1, w);
+    }
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) scratch[warp * N + k] = v[k];
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    T s = scratch[threadIdx.x];
-    for (int w = 1; w < kWarps; ++w) s += scratch[w * N + threadIdx.x];
-    out[threadIdx.x] = s;
-  }
-  __syncthreads();
 }
 
-// x = A^-1 b for a 6x6 A (row-major, overwritten): LU with partial
-// pivoting (the first largest |pivot|, as LAPACK's getrf), then forward
-// and back substitution.
-__device__ void solve6(float* A, float* b) {
-  for (int k = 0; k < 6; ++k) {
-    int p = k;
-    float best = fabsf(A[k * 6 + k]);
-    for (int i = k + 1; i < 6; ++i) {
-      const float m = fabsf(A[i * 6 + k]);
-      if (m > best) {
-        best = m;
-        p = i;
-      }
-    }
-    if (p != k) {
-      for (int j = 0; j < 6; ++j) {
-        const float s = A[k * 6 + j];
-        A[k * 6 + j] = A[p * 6 + j];
-        A[p * 6 + j] = s;
-      }
-      const float s = b[k];
-      b[k] = b[p];
-      b[p] = s;
-    }
-    const float inv = 1.0f / A[k * 6 + k];
-    for (int i = k + 1; i < 6; ++i) {
-      const float l = A[i * 6 + k] * inv;
-      A[i * 6 + k] = l;
-      for (int j = k + 1; j < 6; ++j) A[i * 6 + j] -= l * A[k * 6 + j];
-    }
+// One step of the butterfly below: lanes exchange half their 2W slots
+// with the lane W apart and keep the other half, summed.
+template <int W>
+__device__ __forceinline__ void butterfly_step(float* v, bool upper) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    const float send = upper ? v[i] : v[i + W];
+    const float kept = upper ? v[i + W] : v[i];
+    v[i] = kept + __shfl_xor_sync(0xffffffffu, send, W);
   }
-  for (int i = 1; i < 6; ++i) {
-    for (int j = 0; j < i; ++j) b[i] -= A[i * 6 + j] * b[j];
+}
+
+// Butterfly reduce-scatter of 32 slots over a warp: returns, on lane k,
+// the warp's sum of slot k (31 shuffles; a fixed order of additions).
+__device__ __forceinline__ float warp_reduce_scatter(float* v) {
+  const int lane = threadIdx.x & 31;
+  butterfly_step<16>(v, (lane & 16) != 0);
+  butterfly_step<8>(v, (lane & 8) != 0);
+  butterfly_step<4>(v, (lane & 4) != 0);
+  butterfly_step<2>(v, (lane & 2) != 0);
+  butterfly_step<1>(v, (lane & 1) != 0);
+  return v[0];
+}
+
+// The cluster's sum of every thread's 32 slots, in a fixed order: within
+// each warp, the warps in index order, the CTAs in rank order.  Every
+// thread calls it; lane k of warp 0 gets slot k's sum, the same bits in
+// every CTA of the cluster (other threads get 0).
+__device__ __forceinline__ float cluster_sum(Shared* S, float* acc, int parity, int C, Split& split) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  S->warp[warp][lane] = warp_reduce_scatter(acc);
+  __syncthreads();
+  if (warp == 0) {
+    float s = S->warp[0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) s += S->warp[w][lane];
+    S->part[parity][lane] = s;
   }
-  for (int i = 5; i >= 0; --i) {
-    for (int j = i + 1; j < 6; ++j) b[i] -= A[i * 6 + j] * b[j];
-    b[i] /= A[i * 6 + i];
+  split.mark(1);
+  cluster_barrier();
+  split.mark(2);
+  float tot = 0.0f;
+  if (warp == 0) {
+    tot = peer_state(S, 0)->part[parity][lane];
+    for (int r = 1; r < C; ++r) tot += peer_state(S, r)->part[parity][lane];
   }
+  split.mark(3);
+  return tot;
 }
 
 // (dR, dt) = exp(xi), xi = [rho, phi], with the small-angle branches of
 // geometry/se3.py (theta^2 < 1e-12, eps = 1e-8); then (R2, t2) = (dR R, dR t + dt).
-__device__ void retract(const float* xi, const float* R, const float* t, float* R2, float* t2) {
+__device__ __forceinline__ void retract(const float* xi, const float* R, const float* t, float* R2, float* t2) {
   const float p0 = xi[3], p1 = xi[4], p2 = xi[5];
   const float theta2 = p0 * p0 + p1 * p1 + p2 * p2;
   const float theta = sqrtf(theta2 + 1e-16f);
@@ -202,21 +427,161 @@ __device__ void retract(const float* xi, const float* R, const float* t, float* 
   const float cc = small ? 1.0f / 6.0f - theta2 / 120.0f : (theta - s) / (t2c * theta);
   const float K[9] = {0.0f, -p2, p1, p2, 0.0f, -p0, -p1, p0, 0.0f};
   float K2[9];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
+#pragma unroll
     for (int j = 0; j < 3; ++j) K2[i * 3 + j] = K[i * 3] * K[j] + K[i * 3 + 1] * K[3 + j] + K[i * 3 + 2] * K[6 + j];
   }
   float dR[9], Jl[9];
+#pragma unroll
   for (int k = 0; k < 9; ++k) {
     const float eye = (k % 4 == 0) ? 1.0f : 0.0f;
     dR[k] = eye + a * K[k] + b * K2[k];
     Jl[k] = eye + b * K[k] + cc * K2[k];
   }
   float dt[3];
+#pragma unroll
   for (int i = 0; i < 3; ++i) dt[i] = Jl[i * 3] * xi[0] + Jl[i * 3 + 1] * xi[1] + Jl[i * 3 + 2] * xi[2];
+#pragma unroll
   for (int i = 0; i < 3; ++i) {
+#pragma unroll
     for (int j = 0; j < 3; ++j) R2[i * 3 + j] = dR[i * 3] * R[j] + dR[i * 3 + 1] * R[3 + j] + dR[i * 3 + 2] * R[6 + j];
     t2[i] = dR[i * 3] * t[0] + dR[i * 3 + 1] * t[1] + dR[i * 3 + 2] * t[2] + dt[i];
   }
+}
+
+// Index of H[i][j], i <= j, among the 21 upper entries (row-major).
+__host__ __device__ constexpr int upper(int i, int j) { return i * (11 - i) / 2 + j; }
+
+#if POSE_SOLVE_WARP_SOLVE
+// The candidate on warp 0: lane i < 6 holds row i of [Hd | g]; lane 0
+// then runs the exponential map.  The same elimination as below, row by
+// row on the lanes.  Every lane of warp 0 calls it.
+__device__ __forceinline__ void candidate(Shared* S, float lam) {
+  const int lane = threadIdx.x & 31;
+  const int row = lane < 6 ? lane : 5;
+  float a[6], b = S->keep[21 + row];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    const float h = S->keep[row <= j ? upper(row, j) : upper(j, row)];
+    a[j] = j == row ? h + lam * h + 1e-8f : h;
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    // The first largest |pivot| among rows k..5 (lanes 6 and 7 out).
+    float m = (lane >= k && lane < 6) ? fabsf(a[k]) : -1.0f;
+    int p = lane;
+#pragma unroll
+    for (int off = 4; off >= 1; off >>= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m, off);
+      const int op = __shfl_xor_sync(0xffffffffu, p, off);
+      if (om > m || (om == m && op < p)) {
+        m = om;
+        p = op;
+      }
+    }
+    const int src = lane == k ? p : (lane == p ? k : lane);
+#pragma unroll
+    for (int j = k; j < 6; ++j) a[j] = __shfl_sync(0xffffffffu, a[j], src);
+    b = __shfl_sync(0xffffffffu, b, src);
+    const float inv = 1.0f / __shfl_sync(0xffffffffu, a[k], k);
+    const float l = a[k] * inv;
+#pragma unroll
+    for (int j = k + 1; j < 6; ++j) {
+      const float pj = __shfl_sync(0xffffffffu, a[j], k);
+      if (lane > k) a[j] -= l * pj;
+    }
+    const float pb = __shfl_sync(0xffffffffu, b, k);
+    if (lane > k) b -= l * pb;
+  }
+  float x[6];
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float s = b;
+#pragma unroll
+    for (int j = i + 1; j < 6; ++j) s -= a[j] * x[j];
+    x[i] = __shfl_sync(0xffffffffu, s / a[i], i);
+  }
+  if (lane == 0) {
+    float xi[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i) xi[i] = -x[i];
+    retract(xi, S->R, S->t, S->R2, S->t2);
+  }
+}
+#else
+// The candidate on lane 0 of warp 0: xi = -(H + lam diag(H) + 1e-8 I)^-1 g
+// from the kept sums by Gaussian elimination with partial pivoting on
+// [Hd | g] in registers (the first largest |pivot|; the swaps as selects),
+// back substitution, then (R2, t2) = exp(xi) (R, t).
+__device__ __forceinline__ void candidate(Shared* S, float lam) {
+  if ((threadIdx.x & 31) != 0) return;
+  float A[6][6], b[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = i; j < 6; ++j) {
+      A[i][j] = S->keep[upper(i, j)];
+      A[j][i] = A[i][j];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    A[i][i] = A[i][i] + lam * A[i][i] + 1e-8f;
+    b[i] = S->keep[21 + i];
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int p = k;
+    float best = fabsf(A[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      const float m = fabsf(A[i][k]);
+      if (m > best) {
+        best = m;
+        p = i;
+      }
+    }
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      const bool swap = p == i;
+#pragma unroll
+      for (int j = k; j < 6; ++j) {
+        const float x = A[k][j], y = A[i][j];
+        A[k][j] = swap ? y : x;
+        A[i][j] = swap ? x : y;
+      }
+      const float x = b[k], y = b[i];
+      b[k] = swap ? y : x;
+      b[i] = swap ? x : y;
+    }
+    const float inv = 1.0f / A[k][k];
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      const float l = A[i][k] * inv;
+#pragma unroll
+      for (int j = k + 1; j < 6; ++j) A[i][j] -= l * A[k][j];
+      b[i] -= l * b[k];
+    }
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+#pragma unroll
+    for (int j = i + 1; j < 6; ++j) b[i] -= A[i][j] * b[j];
+    b[i] /= A[i][i];
+  }
+  float xi[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) xi[i] = -b[i];
+  retract(xi, S->R, S->t, S->R2, S->t2);
+}
+#endif
+
+__device__ __forceinline__ void load_pose(const float* sR, const float* st, float* R, float* t) {
+#pragma unroll
+  for (int k = 0; k < 9; ++k) R[k] = sR[k];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = st[k];
 }
 
 __global__ void __launch_bounds__(kThreads) pose_solve_kernel(
@@ -225,180 +590,121 @@ __global__ void __launch_bounds__(kThreads) pose_solve_kernel(
     const float* __restrict__ line_start, const float* __restrict__ line_end, const float* __restrict__ line_obs,
     const float* __restrict__ l_info, const unsigned char* __restrict__ l_valid, int M, int L, Cam cam, int rounds,
     int iters, float* __restrict__ R_out, float* __restrict__ t_out, unsigned char* __restrict__ p_in,
-    unsigned char* __restrict__ l_in, int* __restrict__ n_in, unsigned char* __restrict__ steps) {
-  __shared__ float s_R[9], s_t[3], s_R2[9], s_t2[3];
-  __shared__ float s_scratch[kWarps * kAcc];
-  __shared__ float s_sum[kAcc];
-  __shared__ int s_iscratch[kWarps];
-  __shared__ int s_isum[1];
+    unsigned char* __restrict__ l_in, int* __restrict__ n_in, unsigned char* __restrict__ steps, int C) {
+  Shared* S = reinterpret_cast<Shared*>(shared_base());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = cluster_rank();
+  const long long b = blockIdx.x / C;
 
-  const int tid = threadIdx.x;
-  const long long b = blockIdx.x;
-  points += b * M * 3;
-  obs += b * M * 3;
-  p_info += b * M;
-  valid += b * M;
-  p_in += b * M;
-  line_start += b * L * 3;
-  line_end += b * L * 3;
-  line_obs += b * L * 3;
-  l_info += b * L;
-  l_valid += b * L;
-  l_in += b * L;
-  steps += b * rounds * iters;
-
-  if (tid < 9) s_R[tid] = R0[b * 9 + tid];
-  if (tid < 3) s_t[tid] = t0[b * 3 + tid];
-  for (int i = tid; i < M; i += kThreads) p_in[i] = valid[i];
-  for (int l = tid; l < L; l += kThreads) l_in[l] = l_valid[l];
+  // Stage this CTA's share of the rows.
+  const int np_max = (M + C - 1) / C, nl_max = (L + C - 1) / C;
+  const int p0 = rank * np_max < M ? rank * np_max : M, l0 = rank * nl_max < L ? rank * nl_max : L;
+  const int np = (M - p0 < np_max ? M - p0 : np_max), nl = (L - l0 < nl_max ? L - l0 : nl_max);
+  const Rows rows = carve(shared_base(), np_max, nl_max, np, nl);
+  {
+    const long long pg = b * M + p0, lg = b * L + l0;
+    for (int i = tid; i < 3 * np; i += kThreads) {
+      rows.pts[i] = points[3 * pg + i];
+      rows.obs[i] = obs[3 * pg + i];
+    }
+    for (int i = tid; i < np; i += kThreads) {
+      rows.p_info[i] = p_info[pg + i];
+      rows.p_valid[i] = valid[pg + i];
+      rows.p_in[i] = valid[pg + i];
+    }
+    for (int i = tid; i < 3 * nl; i += kThreads) {
+      rows.ls[i] = line_start[3 * lg + i];
+      rows.le[i] = line_end[3 * lg + i];
+      rows.lobs[i] = line_obs[3 * lg + i];
+    }
+    for (int i = tid; i < nl; i += kThreads) {
+      rows.l_info[i] = l_info[lg + i];
+      rows.l_valid[i] = l_valid[lg + i];
+      rows.l_in[i] = l_valid[lg + i];
+    }
+    if (tid < 9) S->R[tid] = R0[b * 9 + tid];
+    if (tid < 3) S->t[tid] = t0[b * 3 + tid];
+  }
   __syncthreads();
+  Split split;
+  split.start();
 
-  float lam = 1e-3f;   // thread 0's
+  float lam = 1e-3f;   // warp 0's
+  int parity = 0;
+  float R[9], t[3], acc[kSlots];
   for (int rnd = 0; rnd < rounds; ++rnd) {
     const bool huber = rnd < 2;
-    lam = 1e-3f;
-    for (int it = 0; it < iters; ++it) {
-      float R[9], t[3];
+    // The round's first pass, at its pose: the previous round's gating,
+    // then H, g and err0 under the new masks.
+    load_pose(S->R, S->t, R, t);
 #pragma unroll
-      for (int k = 0; k < 9; ++k) R[k] = s_R[k];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) t[k] = s_t[k];
-
-      // Pass 1: H, g and err0 at (R, t).
-      float acc[kAcc];
-#pragma unroll
-      for (int k = 0; k < kAcc; ++k) acc[k] = 0.0f;
-      for (int i = tid; i < M; i += kThreads) {
-        if (!p_in[i]) continue;
-        const float* p = points + 3 * i;
-        const float* o = obs + 3 * i;
-        const bool stereo = o[2] > 0.0f;
-        float r[3], xc[3], inv_z;
-        point_residual(cam, R, t, p, o, stereo, r, xc, inv_z);
-        const float info = p_info[i];
-        const float c = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * info;
-        const float hw = huber ? huber_weight(c, kChi2Stereo, kSqrtChi2Stereo) : 1.0f;
-        const float w = hw * info;
-        acc[27] += c * hw;
-        const float x_z = xc[0] * inv_z, y_z = xc[1] * inv_z;
-        const float jx[3][3] = {
-            {cam.fx * inv_z, 0.0f, -cam.fx * x_z * inv_z},
-            {0.0f, cam.fy * inv_z, -cam.fy * y_z * inv_z},
-            {cam.fx * inv_z, 0.0f, (-cam.fx * x_z + cam.bf * inv_z) * inv_z},
-        };
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          if (d == 2 && !stereo) break;
-          const float J[6] = {jx[d][0], jx[d][1], jx[d][2],
-                              xc[1] * jx[d][2] - xc[2] * jx[d][1],     // cross(xc, jx)
-                              xc[2] * jx[d][0] - xc[0] * jx[d][2],
-                              xc[0] * jx[d][1] - xc[1] * jx[d][0]};
-          accumulate_row(acc, J, r[d], w);
-        }
-      }
-      for (int l = tid; l < L; l += kThreads) {
-        if (!l_in[l]) continue;
-        float J0[6], J1[6];
-        const float* ln = line_obs + 3 * l;
-        const float r0 = line_endpoint(cam, R, t, line_start + 3 * l, ln, J0);
-        const float r1 = line_endpoint(cam, R, t, line_end + 3 * l, ln, J1);
-        const float info = l_info[l];
-        const float c = (r0 * r0 + r1 * r1) * info;
-        const float w = huber ? huber_weight(c, kChi2Mono, kSqrtChi2Mono) * info : info;
-        acc[27] += c;
-        accumulate_row(acc, J0, r0, w);
-        accumulate_row(acc, J1, r1, w);
-      }
-      block_sum<kAcc>(acc, s_scratch, s_sum);
-
-      // Thread 0: the damped step and the candidate pose.
-      if (tid == 0) {
-        float H[36], g[6];
-        int k = 0;
-        for (int i = 0; i < 6; ++i) {
-          for (int j = i; j < 6; ++j) {
-            H[i * 6 + j] = s_sum[k];
-            H[j * 6 + i] = s_sum[k];
-            ++k;
-          }
-        }
-        for (int i = 0; i < 6; ++i) {
-          H[i * 6 + i] = H[i * 6 + i] + lam * H[i * 6 + i] + 1e-8f;
-          g[i] = s_sum[21 + i];
-        }
-        solve6(H, g);
-        float xi[6];
-        for (int i = 0; i < 6; ++i) xi[i] = -g[i];
-        retract(xi, s_R, s_t, s_R2, s_t2);
-      }
-      __syncthreads();
-
-      // Pass 2: err1 at the candidate pose.
-      float R2[9], t2[3];
-#pragma unroll
-      for (int k = 0; k < 9; ++k) R2[k] = s_R2[k];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) t2[k] = s_t2[k];
-      float err1[1] = {0.0f};
-      for (int i = tid; i < M; i += kThreads) {
-        if (!p_in[i]) continue;
-        const float* o = obs + 3 * i;
-        float r[3], xc[3], inv_z;
-        point_residual(cam, R2, t2, points + 3 * i, o, o[2] > 0.0f, r, xc, inv_z);
-        const float c = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * p_info[i];
-        err1[0] += huber ? c * huber_weight(c, kChi2Stereo, kSqrtChi2Stereo) : c;
-      }
-      for (int l = tid; l < L; l += kThreads) {
-        if (!l_in[l]) continue;
-        const float* ln = line_obs + 3 * l;
-        const float r0 = line_endpoint(cam, R2, t2, line_start + 3 * l, ln, nullptr);
-        const float r1 = line_endpoint(cam, R2, t2, line_end + 3 * l, ln, nullptr);
-        err1[0] += (r0 * r0 + r1 * r1) * l_info[l];
-      }
-      block_sum<1>(err1, s_scratch, s_sum);   // writes s_sum[0]; err0 stays in s_sum[27]
-
-      if (tid == 0) {
-        const bool accept = s_sum[0] < s_sum[27];
-        if (accept) {
-          for (int k = 0; k < 9; ++k) s_R[k] = s_R2[k];
-          for (int k = 0; k < 3; ++k) s_t[k] = s_t2[k];
-        }
-        lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.0f, 1e-9f), 1e6f);
-        steps[rnd * iters + it] = accept ? 1 : 0;
-      }
-      __syncthreads();
+    for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+    if (rnd == 0) {
+      pass<false, true>(cam, rows, R, t, huber, acc);
+    } else {
+      pass<true, true>(cam, rows, R, t, huber, acc);
     }
-
-    // Gating at the round's pose.
-    float R[9], t[3];
-#pragma unroll
-    for (int k = 0; k < 9; ++k) R[k] = s_R[k];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) t[k] = s_t[k];
-    for (int i = tid; i < M; i += kThreads) {
-      const float* o = obs + 3 * i;
-      const bool stereo = o[2] > 0.0f;
-      float r[3], xc[3], inv_z;
-      point_residual(cam, R, t, points + 3 * i, o, stereo, r, xc, inv_z);
-      const float c = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]) * p_info[i];
-      p_in[i] = (valid[i] && c <= (stereo ? kChi2Stereo : kChi2Mono)) ? 1 : 0;
+    split.mark(0);
+    float tot = cluster_sum(S, acc, parity, C, split);
+    parity ^= 1;
+    if (warp == 0) {
+      if (lane < kAcc) S->keep[lane] = tot;
+      __syncwarp();
+      lam = 1e-3f;
+      candidate(S, lam);
     }
-    for (int l = tid; l < L; l += kThreads) {
-      const float* ln = line_obs + 3 * l;
-      const float r0 = line_endpoint(cam, R, t, line_start + 3 * l, ln, nullptr);
-      const float r1 = line_endpoint(cam, R, t, line_end + 3 * l, ln, nullptr);
-      l_in[l] = (l_valid[l] && (r0 * r0 + r1 * r1) * l_info[l] <= kChi2Mono) ? 1 : 0;
-    }
+    split.mark(4);
     __syncthreads();
+    split.mark(5);
+    for (int it = 0; it < iters; ++it) {
+      // One pass at the candidate: err1, and H, g, err0 should it be kept.
+      load_pose(S->R2, S->t2, R, t);
+#pragma unroll
+      for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+      pass<false, true>(cam, rows, R, t, huber, acc);
+      split.mark(0);
+      tot = cluster_sum(S, acc, parity, C, split);
+      parity ^= 1;
+      if (warp == 0) {
+        const bool accept = __shfl_sync(0xffffffffu, tot, kErr) < S->keep[kErr];
+        __syncwarp();
+        if (accept) {
+          if (lane < kAcc) S->keep[lane] = tot;
+          if (lane < 9) S->R[lane] = S->R2[lane];
+          if (lane < 3) S->t[lane] = S->t2[lane];
+        }
+        __syncwarp();
+        lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.0f, 1e-9f), 1e6f);
+        if (lane == 0) rows.steps[rnd * iters + it] = accept ? 1 : 0;
+        if (it + 1 < iters) candidate(S, lam);
+      }
+      split.mark(4);
+      __syncthreads();
+      split.mark(5);
+    }
   }
 
-  int count[1] = {0};
-  for (int i = tid; i < M; i += kThreads) count[0] += p_in[i];
-  for (int l = tid; l < L; l += kThreads) count[0] += l_in[l];
-  block_sum<1>(count, s_iscratch, s_isum);
-  if (tid < 9) R_out[b * 9 + tid] = s_R[tid];
-  if (tid < 3) t_out[b * 3 + tid] = s_t[tid];
-  if (tid == 0) n_in[b] = s_isum[0];
+  // The last round's gating at its pose, and the inlier count.
+  load_pose(S->R, S->t, R, t);
+#pragma unroll
+  for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+  pass<true, false>(cam, rows, R, t, false, acc);
+  split.mark(0);
+  const float count = cluster_sum(S, acc, parity, C, split);
+  {
+    const long long pg = b * M + p0, lg = b * L + l0;
+    for (int i = tid; i < np; i += kThreads) p_in[pg + i] = rows.p_in[i];
+    for (int i = tid; i < nl; i += kThreads) l_in[lg + i] = rows.l_in[i];
+  }
+  if (rank == 0) {
+    if (tid < 9) R_out[b * 9 + tid] = S->R[tid];
+    if (tid < 3) t_out[b * 3 + tid] = S->t[tid];
+    if (tid == kCount) n_in[b] = static_cast<int>(count);
+    for (int i = tid; i < rounds * iters; i += kThreads) steps[b * rounds * iters + i] = rows.steps[i];
+  }
+  split.flush(rounds * (iters + 1) + 1);
+  // No CTA leaves while a peer may still read its partial sums.
+  cluster_barrier();
 }
 
 }  // namespace
@@ -409,7 +715,9 @@ __global__ void __launch_bounds__(kThreads) pose_solve_kernel(
 // a, b, c with a^2 + b^2 = 1), l_info and l_valid [B, L]; outputs R [B, 3,
 // 3], t [B, 3], p_in [B, M], l_in [B, L] (bool bytes), n_in int32 [B],
 // steps [B, rounds * iters] (1 where the LM step was accepted).  Launches
-// B blocks on `stream`; returns cudaGetLastError().
+// B clusters of cluster_size(M, L) CTAs on `stream`; returns
+// cudaErrorInvalidValue where a CTA's rows do not fit in shared memory,
+// else the launch's error or cudaGetLastError().  Nothing falls back.
 extern "C" int pose_solve_launch(const float* R0, const float* t0, const float* points, const float* obs,
                                  const float* p_info, const unsigned char* valid, const float* line_start,
                                  const float* line_end, const float* line_obs, const float* l_info,
@@ -417,10 +725,42 @@ extern "C" int pose_solve_launch(const float* R0, const float* t0, const float* 
                                  float cy, float bf, int rounds, int iters, float* R, float* t, unsigned char* p_in,
                                  unsigned char* l_in, int* n_in, unsigned char* steps, void* stream) {
   if (B > 0) {
+    const int C = cluster_size(M, L);
+    const int bytes = shared_bytes(M, L, C, rounds, iters);
+    if (bytes > kMaxSharedBytes) return static_cast<int>(cudaErrorInvalidValue);
+    if (bytes > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(pose_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = C;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(B * C, 1, 1);
+    config.blockDim = dim3(kThreads, 1, 1);
+    config.dynamicSmemBytes = bytes;
+    config.stream = static_cast<cudaStream_t>(stream);
+    config.attrs = attr;
+    config.numAttrs = 1;
     const Cam cam{fx, fy, cx, cy, bf};
-    pose_solve_kernel<<<B, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        R0, t0, points, obs, p_info, valid, line_start, line_end, line_obs, l_info, l_valid, M, L, cam, rounds,
-        iters, R, t, p_in, l_in, n_in, steps);
+    const cudaError_t err = cudaLaunchKernelEx(&config, pose_solve_kernel, R0, t0, points, obs, p_info, valid,
+                                               line_start, line_end, line_obs, l_info, l_valid, M, L, cam, rounds,
+                                               iters, R, t, p_in, l_in, n_in, steps, C);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef POSE_SOLVE_SPLIT
+// The split counters since the last call (the kSplitSlots cycle counts of
+// CTA 0's thread 0, then the passes), reset to 0.
+extern "C" int pose_solve_split(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, sizeof(g_split));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned long long zero[kSplitSlots + 1] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(g_split, zero, sizeof(zero)));
+}
+#endif

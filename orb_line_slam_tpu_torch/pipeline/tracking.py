@@ -191,6 +191,9 @@ class Tracker:
         self.n_ba_skipped = 0            # skipped behind a newer keyframe's chain
         self.n_ba_stale = 0              # discarded: a loop correction came first
         self.ba_lag_frames: list[int] = []  # frames from each deferred BA's pack to its apply
+        # (frame id, seconds) of each wait for a deferred BA's solve (the
+        # timing stage "ba_wait" holds their sum)
+        self.ba_waits: list[tuple[int, float]] = []
         self.joint_ba_lobs: list[int] = []  # line observations of each joint BA applied
         self.timing = StageTimer()
 
@@ -879,7 +882,11 @@ class Tracker:
             return
         pack, lpack, fut, center_kf = pending
         self._pending_ba = None
+        t0 = time.perf_counter()
         solved = fut.result()
+        waited = time.perf_counter() - t0
+        self.timing.add("ba_wait", waited)
+        self.ba_waits.append((self.frame_id, waited))
         if pack["pose_epoch"] != getattr(self.map, "pose_epoch", 0):
             self.timing.add(solved[1], solved[2])
             self.n_ba_stale += 1

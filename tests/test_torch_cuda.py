@@ -270,7 +270,7 @@ def test_pose_solve_kernel_matches_plain(cuda, cell, rounds, iters):
 
 def test_pose_solve_batch_of_four_is_one_launch(cuda):
     """torch.func.vmap of pose_optimize over 4 problems (the batched step's
-    shape: 2000 points, 128 lines, 4x10) is one launch of 4 blocks, each
+    shape: 2000 points, 128 lines, 4x10) is one launch of 4 clusters, each
     solve bit-identical to the kernel on that problem alone."""
     cs = _chip_smoke()
     cfg = cs.bench_pipeline_config()
@@ -285,6 +285,52 @@ def test_pose_solve_batch_of_four_is_one_launch(cuda):
         one = pose_opt.pose_optimize(*a, cfg.camera, cfg.orb.scale_factor, **k)
         for x, y in zip(got, one):
             assert torch.equal(x[b], y)
+
+
+def test_pose_solve_reruns_give_the_same_bits(cuda):
+    """Two launches on the same inputs (the point cell's 4x10 with the
+    bench pipeline's lines: a cluster of 8 CTAs) give the same bits: the
+    sums are taken in a fixed order within and across the CTAs."""
+    cs = _chip_smoke()
+    cfg = cs.bench_pipeline_config()
+    args = cs.pose_op_args(cfg, 5, cfg.orb.n_features, cfg.lines.n_lines)
+    assert pose_opt.cluster_size(cfg.orb.n_features, cfg.lines.n_lines) == 8
+    first = pose_opt.pose_solve_cuda(*args, 4, 10)
+    second = pose_opt.pose_solve_cuda(*args, 4, 10)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+def test_pose_solve_batch_of_eight_is_one_launch(cuda):
+    """A batch of 8 solves at the point cell's shape (2000 points, 4x10) is
+    one launch of 8 clusters, and each solve is bit-identical to itself
+    launched alone."""
+    cs = _chip_smoke()
+    cfg = cs.kitti_config()
+    args = cs.pose_batch_args(cfg, 30, cfg.orb.n_features, 0, B=8)
+    before = pose_opt.launches
+    got = pose_opt.pose_solve_cuda(*args, 4, 10)
+    torch.cuda.synchronize()
+    assert pose_opt.launches == before + 1 and got[0].shape == (8, 3, 3)
+    for b in range(8):
+        one = pose_opt.pose_solve_cuda(*(x[b] for x in args[:11]), *args[11:], 4, 10)
+        for x, y in zip(got, one):
+            assert torch.equal(x[b], y)
+
+
+def test_pose_solve_beyond_the_shared_memory_cap_raises(cuda):
+    """A CTA's share of the rows must fit in its shared memory: 70,000
+    points (8,750 a CTA) do not, and the wrapper raises before launching."""
+    cs = _chip_smoke()
+    cfg = cs.kitti_config()
+    M = 70000
+    assert pose_opt.shared_bytes(M, 0, 4, 10) > pose_opt.MAX_SHARED_BYTES
+    args = cs.pose_op_args(cfg, 7, M, 0)
+    before = pose_opt.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        pose_opt.pose_solve_cuda(*args, 4, 10)
+    assert pose_opt.launches == before
 
 
 def test_pose_solve_rejects_mixed_devices(cuda):

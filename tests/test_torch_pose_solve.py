@@ -176,53 +176,104 @@ def test_pose_solve_rejects_bad_inputs():
 _HOST_SHIM = r"""
 #include <barrier>
 #include <cmath>
-#include <functional>
+#include <cstring>
+#include <memory>
 #include <thread>
 #include <vector>
-struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-thread_local Dim3 threadIdx;
-Dim3 blockIdx;
-std::barrier<>* g_barrier = nullptr;
-inline void __syncthreads() { g_barrier->arrive_and_wait(); }
-template <class T> T __shfl_down_sync(unsigned, T v, int off) {
-  static T exchange[1024];
-  const int tid = threadIdx.x;
-  exchange[tid] = v;
-  __syncthreads();
-  const T r = ((tid & 31) + off < 32) ? exchange[tid + off] : v;
-  __syncthreads();
-  return r;
-}
+#define POSE_SOLVE_HOST 1
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__
-#define __shared__ static
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+thread_local Dim3 threadIdx, blockIdx;
+// A warp: its barrier and two exchange buffers, used in turn (a thread
+// writes one only after all have passed the barrier that follows their
+// read of it).
+struct HostWarp {
+  std::barrier<> bar{32};
+  alignas(8) unsigned char ex[2][32 * 8];
+};
+// A CTA: its own shared memory (filled with NaN bytes: nothing may read
+// what it did not write), its barrier and its warps.
+struct HostCta {
+  HostCta(int bytes, int threads, int rank_) : smem(bytes, 0xff), block(threads), warps(threads / 32), rank(rank_) {}
+  std::vector<unsigned char> smem;
+  std::barrier<> block;
+  std::vector<HostWarp> warps;
+  int rank;
+};
+struct HostCluster {
+  std::barrier<>* all;
+  std::vector<HostCta*> ctas;
+};
+thread_local HostCta* t_cta = nullptr;
+thread_local HostCluster* t_cluster = nullptr;
+thread_local int t_phase = 0;
+inline void __syncthreads() { t_cta->block.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { t_cta->warps[threadIdx.x >> 5].bar.arrive_and_wait(); }
+template <class T> T host_exchange(T v, int src_lane) {
+  HostWarp& w = t_cta->warps[threadIdx.x >> 5];
+  unsigned char* ex = w.ex[t_phase];
+  t_phase ^= 1;
+  std::memcpy(ex + 8 * (threadIdx.x & 31), &v, sizeof(T));
+  w.bar.arrive_and_wait();
+  T r;
+  std::memcpy(&r, ex + 8 * src_lane, sizeof(T));
+  return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int lane) { return host_exchange(v, lane & 31); }
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask) { return host_exchange(v, (threadIdx.x & 31) ^ mask); }
+// The cluster primitives.
+inline unsigned char* shared_base() { return t_cta->smem.data(); }
+inline int cluster_rank() { return t_cta->rank; }
+inline void cluster_barrier() { t_cluster->all->arrive_and_wait(); }
+template <class T> T* peer_state(T* p, int rank) {
+  const long off = reinterpret_cast<unsigned char*>(p) - t_cta->smem.data();
+  return reinterpret_cast<T*>(t_cluster->ctas[rank]->smem.data() + off);
+}
 """
 
 _HOST_LAUNCH = r"""
+// B clusters of C CTAs (C = 0: the launcher's rule), one after the other;
+// each cluster's C x kThreads CUDA threads are host threads.
 extern "C" void host_pose_solve(const float* R0, const float* t0, const float* points, const float* obs,
     const float* p_info, const unsigned char* valid, const float* line_start, const float* line_end,
     const float* line_obs, const float* l_info, const unsigned char* l_valid, int B, int M, int L, float fx,
     float fy, float cx, float cy, float bf, int rounds, int iters, float* R, float* t, unsigned char* p_in,
-    unsigned char* l_in, int* n_in, unsigned char* steps) {
-  std::barrier<> barrier(kThreads);
-  g_barrier = &barrier;
+    unsigned char* l_in, int* n_in, unsigned char* steps, int C) {
+  if (C == 0) C = cluster_size(M, L);
+  const int bytes = shared_bytes(M, L, C, rounds, iters);
   const Cam cam{fx, fy, cx, cy, bf};
   for (int b = 0; b < B; ++b) {
-    blockIdx.x = b;
+    std::barrier<> all(C * kThreads);
+    std::vector<std::unique_ptr<HostCta>> ctas;
+    HostCluster cluster{&all, {}};
+    for (int r = 0; r < C; ++r) {
+      ctas.push_back(std::make_unique<HostCta>(bytes, kThreads, r));
+      cluster.ctas.push_back(ctas.back().get());
+    }
     std::vector<std::thread> threads;
-    for (int i = 0; i < kThreads; ++i) {
-      threads.emplace_back([&, i] {
-        threadIdx.x = i;
-        pose_solve_kernel(R0, t0, points, obs, p_info, valid, line_start, line_end, line_obs, l_info, l_valid,
-                          M, L, cam, rounds, iters, R, t, p_in, l_in, n_in, steps);
-      });
+    for (int r = 0; r < C; ++r) {
+      for (int i = 0; i < kThreads; ++i) {
+        threads.emplace_back([&, r, i] {
+          t_cta = ctas[r].get();
+          t_cluster = &cluster;
+          threadIdx.x = i;
+          blockIdx.x = b * C + r;
+          pose_solve_kernel(R0, t0, points, obs, p_info, valid, line_start, line_end, line_obs, l_info, l_valid,
+                            M, L, cam, rounds, iters, R, t, p_in, l_in, n_in, steps, C);
+        });
+      }
     }
     for (auto& th : threads) th.join();
   }
-  g_barrier = nullptr;
+}
+extern "C" int host_cluster_size(int M, int L) { return cluster_size(M, L); }
+extern "C" int host_shared_bytes(int M, int L, int C, int rounds, int iters) {
+  return shared_bytes(M, L, C, rounds, iters);
 }
 """
 
@@ -230,38 +281,60 @@ extern "C" void host_pose_solve(const float* R0, const float* t0, const float* p
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     """csrc/pose_solve.cu compiled for the host (its kernel and device
-    functions as written; the C launcher replaced by a loop over blocks)."""
+    functions as written; the cluster primitives, the warp shuffles and
+    the C launcher replaced by the shim's)."""
     import ctypes
 
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("needs g++ (C++20) to compile the kernel source for the host")
     src = (pose_opt._build.CSRC / "pose_solve.cu").read_text()
-    body = src[: src.index("}  // namespace")].replace("#include <cuda_runtime.h>", _HOST_SHIM)
+    body = _HOST_SHIM + src[: src.index("}  // namespace")]
     d = tmp_path_factory.mktemp("pose_solve_host")
     (d / "host.cpp").write_text(body + "}  // namespace\n" + _HOST_LAUNCH)
     built = subprocess.run([cxx, "-std=c++20", "-O2", "-pthread", "-shared", "-fPIC", "-o", str(d / "libhost.so"),
                             str(d / "host.cpp")], capture_output=True, text=True, timeout=300)
     assert built.returncode == 0, built.stderr[-2000:]
-    fn = ctypes.CDLL(str(d / "libhost.so")).host_pose_solve
-    fn.argtypes = list(pose_opt._ARGTYPES)
-    fn.restype = None
-    return fn
+    lib = ctypes.CDLL(str(d / "libhost.so"))
+    lib.host_pose_solve.argtypes = [*pose_opt._ARGTYPES, ctypes.c_int]
+    lib.host_pose_solve.restype = None
+    for name in ("host_cluster_size", "host_shared_bytes"):
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
 
 
-@pytest.mark.parametrize("n_lines,rounds,iters", [(0, 2, 8), (16, 4, 10)])
-def test_kernel_source_on_host_threads_matches_plain(host_kernel, n_lines, rounds, iters):
-    """Two solves in one launch of the kernel source: each within 1e-5 rad
-    and 5e-5 m of the plain version (the same arithmetic, sums in another
-    order), the inlier masks on >= 99% of rows, n_inliers within 3."""
-    B, M = 2, 200
-    per = [_op_args(60 + b, M, n_lines, 0.3) for b in range(B)]
+def _host_solve(lib, per, rounds, iters, C):
+    """The kernel source on host threads over the solves `per` (one
+    launch of len(per) clusters of C CTAs); its outputs as tensors."""
+    B, M, L = len(per), per[0][2].shape[0], per[0][6].shape[0]
     T = [torch.stack([p[i] for p in per]).contiguous() for i in range(11)]
     R, t = torch.empty(B, 3, 3), torch.empty(B, 3)
-    p_in, l_in = torch.empty(B, M, dtype=torch.bool), torch.empty(B, n_lines, dtype=torch.bool)
+    p_in, l_in = torch.empty(B, M, dtype=torch.bool), torch.empty(B, L, dtype=torch.bool)
     n_in, steps = torch.empty(B, dtype=torch.int32), torch.empty(B, rounds * iters, dtype=torch.uint8)
-    host_kernel(*(x.data_ptr() for x in T), B, M, n_lines, *per[0][11:], rounds, iters, R.data_ptr(), t.data_ptr(),
-                p_in.data_ptr(), l_in.data_ptr(), n_in.data_ptr(), steps.data_ptr())
+    lib.host_pose_solve(*(x.data_ptr() for x in T), B, M, L, *per[0][11:], rounds, iters, R.data_ptr(), t.data_ptr(),
+                        p_in.data_ptr(), l_in.data_ptr(), n_in.data_ptr(), steps.data_ptr(), C)
+    return R, t, p_in, l_in, n_in, steps
+
+
+def _host_cases():
+    """C = 1, 2 and 4 CTAs a cluster, with and without lines, at 2x8 and
+    4x10; the C = 1 cases keep the ids they had before clusters."""
+    for C in (1, 2, 4):
+        for n_lines in (0, 16):
+            for rounds, iters in ((2, 8), (4, 10)):
+                yield pytest.param(n_lines, rounds, iters, C,
+                                   id=f"{n_lines}-{rounds}-{iters}" + (f"-C{C}" if C > 1 else ""))
+
+
+@pytest.mark.parametrize("n_lines,rounds,iters,cluster", list(_host_cases()))
+def test_kernel_source_on_host_threads_matches_plain(host_kernel, n_lines, rounds, iters, cluster):
+    """Two solves in one launch of the kernel source, each a cluster of
+    `cluster` CTAs: each within 1e-5 rad and 5e-5 m of the plain version
+    (the same arithmetic, sums in another order), the inlier masks on >=
+    99% of rows, n_inliers within 3; a second launch gives the same bits."""
+    B, M = 2, 200
+    per = [_op_args(60 + b, M, n_lines, 0.3) for b in range(B)]
+    R, t, p_in, l_in, n_in, steps = got = _host_solve(host_kernel, per, rounds, iters, cluster)
     for b in range(B):
         want = pose_opt.pose_solve_plain(*per[b], rounds, iters)
         assert _rotation_gap(R[b].numpy(), want[0].numpy()) < 1e-5
@@ -271,3 +344,19 @@ def test_kernel_source_on_host_threads_matches_plain(host_kernel, n_lines, round
             assert float((l_in[b] == want[3]).float().mean()) >= 0.99
         assert abs(int(n_in[b]) - int(want[4])) <= 3
         assert int(n_in[b]) == int(p_in[b].sum()) + int(l_in[b].sum())
+    again = _host_solve(host_kernel, per, rounds, iters, cluster)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+def test_launch_rule_of_the_wrapper_is_the_sources(host_kernel):
+    """pose_opt's copy of the launcher's rule (CTAs a cluster, shared bytes
+    a CTA) equals the source's own, compiled, over shapes from empty to
+    past the shared-memory cap; the cells' shapes get C >= 2."""
+    for M in (0, 1, 200, 255, 256, 257, 1000, 1200, 2000, 2048, 2049, 4096, 5000, 60000, 70000):
+        for L in (0, 16, 64, 128, 3000):
+            C = host_kernel.host_cluster_size(M, L)
+            assert pose_opt.cluster_size(M, L) == C
+            assert pose_opt.shared_bytes(M, L, 4, 10) == host_kernel.host_shared_bytes(M, L, C, 4, 10)
+    assert [pose_opt.cluster_size(M, L) for M, L in ((2000, 0), (1200, 128), (1000, 64), (1200, 0), (1000, 0))] \
+        == [8, 6, 5, 5, 4]
