@@ -3160,24 +3160,24 @@ def compare_parent(parent):
     print(json.dumps({"compare_parent": summary}))
 
 
-# --pose-split's builds of csrc/pose_solve.cu: the serial step on one
-# thread (the default) or on one warp, each also with the split counters.
-POSE_VARIANTS = {"thread": (), "warp": ("-DPOSE_SOLVE_WARP_SOLVE=1",)}
-POSE_SPLIT_SLOTS = ("pass", "warp and CTA sums", "cluster barrier", "gather", "serial step", "broadcast")
+# --pose-split's counters of csrc/pose_solve.cu built with POSE_SOLVE_SPLIT=1:
+# five slots of CTA 0's thread 0 (the solving warp, the critical path),
+# then two of a worker (thread 32).
+POSE_SPLIT_SLOTS = ("speculative step", "cluster barrier", "gather", "serial step", "broadcast")
+POSE_WORKER_SLOTS = ("a worker's pass", "a worker's sums")
 
 
 def pose_split(parent=None):
-    """``python3 chip_smoke.py --pose-split [DIR]``: the pose-solve kernel's
-    serial step on one thread against one warp, and where an LM iteration's
-    time goes.  Builds csrc/pose_solve.cu four ways (thread, warp, each
-    also with POSE_SOLVE_SPLIT=1) and, with DIR (an unpacked parent
-    commit), DIR's own pose_solve.cu, all nvcc at once; holds every build
-    to the plain version at phase 3's seven shapes (the pose contract; it
-    prints which builds give the thread build's bits); times each
-    build's own device time there in turns (parent, thread, warp, warp,
-    thread, parent); then per shape the split builds' cycle counters of
-    CTA 0's thread 0 (POSE_SPLIT_SLOTS), as us per pass from the split
-    build's own device time."""
+    """``python3 chip_smoke.py --pose-split [DIR]``: where an LM iteration
+    of the pose-solve kernel spends its time.  Builds csrc/pose_solve.cu
+    as it is and with POSE_SOLVE_SPLIT=1 and, with DIR (an unpacked
+    parent commit), DIR's own pose_solve.cu, all nvcc at once; holds every
+    build to the plain version at phase 3's seven shapes (the pose
+    contract; it prints whether the split build gives the same bits);
+    times the own device time of this build and DIR's there in turns
+    (DIR, this, this, DIR); then per shape the split build's cycle
+    counters (POSE_SPLIT_SLOTS, POSE_WORKER_SLOTS) as us per pass, from
+    the split build's own device time."""
     import ctypes
 
     import torch
@@ -3189,15 +3189,14 @@ def pose_split(parent=None):
     from orb_line_slam_tpu_torch.ops import _build
 
     src = str(_build.CSRC / "pose_solve.cu")
-    jobs = {name: (src, flags) for name, flags in POSE_VARIANTS.items()}
-    jobs.update({f"{name}+split": (src, (*flags, "-DPOSE_SOLVE_SPLIT=1")) for name, flags in POSE_VARIANTS.items()})
+    jobs = {"this": (src, ()), "split": (src, ("-DPOSE_SOLVE_SPLIT=1",))}
     if parent is not None:
         jobs["parent"] = (os.path.join(os.path.abspath(parent), "orb_line_slam_tpu_torch", "csrc", "pose_solve.cu"), ())
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     t0 = time.perf_counter()
     for name, (path, flags) in jobs.items():
-        out = _build.BUILD_DIR / f"libpose_solve_{name.replace('+', '_')}.so"
+        out = _build.BUILD_DIR / f"libpose_solve_{name}.so"
         cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
                *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), path]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
@@ -3210,7 +3209,7 @@ def pose_split(parent=None):
         lib = ctypes.CDLL(str(out))
         lib.pose_solve_launch.argtypes = [*pose_opt._ARGTYPES, ctypes.c_void_p]
         lib.pose_solve_launch.restype = ctypes.c_int
-        if "split" in name:
+        if name == "split":
             lib.pose_solve_split.argtypes = [ctypes.c_void_p]
             lib.pose_solve_split.restype = ctypes.c_int
         libs[name] = lib
@@ -3236,12 +3235,11 @@ def pose_split(parent=None):
                 check(rad < 1e-3 and dt < 5e-3 and abs(int(k[4]) - int(want[4])) <= 3,
                       f"pose split: {name} build at {label}, solve {b}: {rad:.2e} rad, {dt:.2e} m, "
                       f"inliers {int(k[4])} / {int(want[4])}")
-        same = [name for name in libs if name not in ("thread", "parent")
-                and all(torch.equal(x, y) for x, y in zip(outs[name], outs["thread"]))]
-        print(f"pose split, {label}: every build within the pose contract of the plain version; bit-identical to "
-              f"the thread build: {same}")
+        same = all(torch.equal(x, y) for x, y in zip(outs["split"], outs["this"]))
+        print(f"pose split, {label}: every build within the pose contract of the plain version; the split build "
+              f"{'gives' if same else 'does not give'} this build's bits")
 
-    order = [n for n in ("parent", "thread", "warp") if n in libs]
+    order = [n for n in ("parent", "this") if n in libs]
     order = order + order[::-1]
     times = {label: {} for label, *_ in shapes}
     for name in order:
@@ -3251,31 +3249,34 @@ def pose_split(parent=None):
                                 pose_opt) * 1e3
             times[label].setdefault(name, []).append(own)
     split = {}
-    n_slots = len(POSE_SPLIT_SLOTS)
+    n_slots = len(POSE_SPLIT_SLOTS) + len(POSE_WORKER_SLOTS)
     counters = (ctypes.c_ulonglong * (n_slots + 1))()
-    for name in POSE_VARIANTS:
-        lib = libs[f"{name}+split"]
-        use(f"{name}+split")
-        for label, args, rounds, iters in shapes:
-            check(lib.pose_solve_split(counters) == 0, "pose split: reading the counters failed")
-            own = own_device_ms(lambda: pose_opt.pose_solve_cuda(*args, rounds, iters), "pose_solve_kernel",
-                                pose_opt) * 1e3
-            torch.cuda.synchronize()
-            check(lib.pose_solve_split(counters) == 0, "pose split: reading the counters failed")
-            passes = rounds * (iters + 1) + 1
-            n_launch = counters[n_slots] / passes       # own_device_ms's calls, a window taken again included
-            cyc = [counters[k] / n_launch for k in range(n_slots)]
-            us_per_cycle = own / sum(cyc)
-            split.setdefault(label, {})[name] = {
-                "device_us": own, "passes": passes, "sm_mhz": sum(cyc) / own,
-                **{f"{slot}_us_per_pass": c * us_per_cycle / passes for slot, c in zip(POSE_SPLIT_SLOTS, cyc)}}
+    lib = libs["split"]
+    use("split")
+    for label, args, rounds, iters in shapes:
+        check(lib.pose_solve_split(counters) == 0, "pose split: reading the counters failed")
+        own = own_device_ms(lambda: pose_opt.pose_solve_cuda(*args, rounds, iters), "pose_solve_kernel",
+                            pose_opt) * 1e3
+        torch.cuda.synchronize()
+        check(lib.pose_solve_split(counters) == 0, "pose split: reading the counters failed")
+        passes = rounds * (iters + 1) + 1
+        n_launch = counters[n_slots] / passes       # own_device_ms's calls, a window taken again included
+        cyc = [counters[k] / n_launch for k in range(n_slots)]
+        main = cyc[:len(POSE_SPLIT_SLOTS)]
+        us_per_cycle = own / sum(main)
+        split[label] = {
+            "device_us": own, "passes": passes, "sm_mhz": sum(main) / own,
+            **{f"{slot}_us_per_pass": c * us_per_cycle / passes for slot, c in zip(POSE_SPLIT_SLOTS, main)},
+            # the worker's counters leave out the last gating pass
+            **{f"{slot}_us_per_pass": c * us_per_cycle / (passes - 1)
+               for slot, c in zip(POSE_WORKER_SLOTS, cyc[len(POSE_SPLIT_SLOTS):])}}
     for label, *_ in shapes:
+        row = split[label]
         print(f"pose split, {label}: own device us " + ", ".join(
             f"{n} {' / '.join(f'{v:.1f}' for v in times[label][n])}" for n in times[label]))
-        for name, row in split[label].items():
-            print(f"pose split, {label}, {name} step: {row['passes']:.0f} passes, us per pass "
-                  + ", ".join(f"{slot} {row[f'{slot}_us_per_pass']:.3f}" for slot in POSE_SPLIT_SLOTS)
-                  + f" (split build {row['device_us']:.1f} us, {row['sm_mhz']:.0f} MHz)")
+        print(f"pose split, {label}: {row['passes']:.0f} passes, us per pass "
+              + ", ".join(f"{slot} {row[f'{slot}_us_per_pass']:.3f}" for slot in (*POSE_SPLIT_SLOTS, *POSE_WORKER_SLOTS))
+              + f" (split build {row['device_us']:.1f} us, {row['sm_mhz']:.0f} MHz)")
     print(json.dumps({"pose_split": {"device_us": times, "split": split}}), flush=True)
 
 

@@ -26,17 +26,18 @@
 //
 // What bounds it: latency, not bytes or operations.  A 4x10 solve at the
 // point cell (M = 2000) needs ~20 M float32 operations and reads ~60 KB,
-// 0.3 us of the card's float32 rate; but it is a chain of 40 dependent LM
+// 0.3 us at the card's float32 rate; but it is a chain of 40 dependent LM
 // steps, each a pass over every observation, a reduction of 28 sums over
 // all of them, and a 6x6 solve and exponential map that nothing else can
 // overlap.  The time is that chain's latency.  What the design does about it:
 //
-// 1. One cluster of C CTAs (256 threads each) on neighbouring SMs per
-//    solve, grid B x C, the cluster dimension (C, 1, 1) set at launch.
-//    C = min(8, ceil((M + L) / 256)): a thread holds one row up to 2,048
-//    rows (8 CTAs at the point cell's M = 2000), more above; 8 is the
-//    portable cluster size.  Each CTA owns a contiguous share of the
-//    point rows and of the line rows.
+// 1. One cluster of C CTAs on neighbouring SMs per solve, grid B x C, the
+//    cluster dimension (C, 1, 1) set at launch.  A CTA is 8 worker warps
+//    (256 threads, a row each) and warp 0, which solves.  C = min(8,
+//    ceil((M + L) / 256)): a worker holds one row up to 2,048 rows (8 CTAs
+//    at the point cell's M = 2000, 6 and 5 at the point+line and loop
+//    cells' 4x10), more above; 8 is the portable cluster size.  Each CTA
+//    owns a contiguous share of the point rows and of the line rows.
 // 2. Rows staged once: each CTA copies its share (points, observations,
 //    information weights, valid flags, line endpoints and coefficients)
 //    into shared memory with coalesced loads, and keeps the inlier masks
@@ -51,34 +52,43 @@
 //    Each round starts with one pass at its pose that also does the
 //    previous round's gating (the chi2 it needs is the pass's own); one
 //    last gating pass counts the inliers.  A solve is rounds x (iters + 1)
-//    + 1 passes (45 at 4x10, 19 at 2x8), where a pass of the PR 10
-//    kernel per LM step was followed by a second one for err1 (88 at 4x10).
-//    The reduction: a butterfly reduce-scatter inside each warp (31
-//    shuffles for 32 slots, lane k ends with slot k), the warps in index
-//    order, then the C CTAs' partials in rank order through distributed
-//    shared memory after one cluster barrier.  Every CTA sums in the same
-//    order, so all hold the same bits, solve the same 6x6 system to the
-//    same candidate and need no broadcast; a rerun, or a solve's position
-//    in a batch, gives the same bits.  The partials are double-buffered
-//    by the reduction's parity, so one cluster barrier an iteration
-//    suffices (a peer reads buffer p before it arrives at the next
-//    barrier, and nobody writes p again before passing that barrier).
-// 4. The serial step (lane 0 of warp 0 in each CTA): the accept test, the
-//    6x6 Gaussian elimination with partial pivoting (the first largest
-//    |pivot|, as LAPACK's getrf) fully unrolled in registers, its row
-//    swaps as selects, and the exponential map.  POSE_SOLVE_WARP_SOLVE=1
-//    builds the elimination on one warp instead (rows on lanes, the pivot
-//    search and the swaps by shuffles, the same tie-break and the same
-//    arithmetic); chip_smoke.py --pose-split times both and prints the
-//    split of an iteration (pass, reduction, serial step, broadcast),
-//    built with POSE_SOLVE_SPLIT=1.  The one-thread step is the default:
-//    see PERF.md for what each costs.
+//    + 1 passes (45 at 4x10, 19 at 2x8), where the one-block kernel this
+//    replaces ran a second pass for err1 after each (88 at 4x10).
+//    The reduction: a butterfly reduce-scatter inside each worker warp (31
+//    shuffles for 32 slots, lane k ends with slot k), the worker warps in
+//    index order (warp 1, after the workers' named barrier), then one
+//    cluster barrier, and warp 0 sums the C CTAs' partials in rank order
+//    through distributed shared memory.  Every CTA sums in the same order,
+//    so all hold the same bits, solve the same 6x6 system to the same
+//    candidate and need no broadcast; a rerun, or a solve's position in a
+//    batch, gives the same bits.  The partials are double-buffered by the
+//    reduction's parity, so one cluster barrier an iteration suffices (a
+//    peer reads buffer p before it arrives at the next barrier, and nobody
+//    writes p again before that barrier completes).
+// 4. The serial step, on lane 0 of warp 0 in each CTA: the 6x6 Gaussian
+//    elimination with partial pivoting (the first largest |pivot|, as
+//    LAPACK's getrf) fully unrolled in registers, its row swaps as
+//    selects, back substitution, and the exponential map: ~1.0 us on the
+//    card.  Most steps of a solve that has converged are rejected (on
+//    chip_smoke.py's seeded problems 81-93% at 4x10 and 52-69% at 2x8, by
+//    the plain version).  So while the workers run a pass, lane 0
+//    forms the candidate that follows a rejection (the kept sums with
+//    lam x 4, at the kept pose); after the reduction a rejected step only
+//    copies it, and only an accepted one waits for a solve.  Warp 0
+//    arrives at the cluster barrier before that work (it publishes
+//    nothing) and waits there after it, so the workers never wait for it.
+//    The same step spread over one warp (rows on lanes, pivot search and
+//    swaps by shuffles) took ~1.9-2.0 us against one thread's ~1.0 and was
+//    dropped.  chip_smoke.py --pose-split prints where an iteration's time
+//    goes, from cycle counters built in with POSE_SOLVE_SPLIT=1; PERF.md
+//    has the numbers.
 // 5. The shared state is one struct behind one pointer (shared_base()),
-//    and the cluster primitives are three small functions (cluster_rank,
-//    cluster_barrier, peer_state): tests/test_torch_pose_solve.py compiles
-//    this source for the host with its own versions of those and of the
-//    warp shuffles, one host thread per CUDA thread and a shared state per
-//    CTA, and holds it to the plain version.
+//    and the barriers and cluster primitives are small functions
+//    (worker_barrier, cluster_rank, cluster_arrive, cluster_wait,
+//    peer_state): tests/test_torch_pose_solve.py compiles this source for
+//    the host with its own versions of those and of the warp shuffles, one
+//    host thread per CUDA thread and a shared state per CTA, and holds it
+//    to the plain version.
 //
 // sinf, cosf, sqrtf and divisions are the IEEE ones (no fast math).
 // Against the plain version (backend/pose_opt.py::pose_solve_plain) only
@@ -93,14 +103,11 @@
 extern __shared__ __align__(16) unsigned char pose_solve_smem[];
 #endif
 
-#ifndef POSE_SOLVE_WARP_SOLVE
-#define POSE_SOLVE_WARP_SOLVE 0
-#endif
-
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kWorkers = 256;                // threads that own rows: warps 1..8
+constexpr int kWarps = kWorkers / 32;        // worker warps
+constexpr int kThreads = kWorkers + 32;      // and warp 0, which solves
 constexpr int kMaxCluster = 8;               // the portable cluster size
 constexpr int kAcc = 28;                     // H upper (21), g (6), err
 constexpr int kErr = 27;
@@ -119,18 +126,19 @@ struct Cam {
 
 // A CTA's shared state; its rows follow at kHeaderBytes.
 struct Shared {
-  float warp[kWarps][kSlots];   // each warp's sums, slot k on lane k
+  float warp[kWarps][kSlots];   // each worker warp's sums, slot k on lane k
   float part[2][kSlots];        // the CTA's sums by reduction parity (peers read them)
   float keep[kAcc];             // H, g and err at the kept pose
   float R[9], t[3];             // the kept pose
   float R2[9], t2[3];           // the candidate pose
+  float Rr[9], tr[3];           // the next candidate should this one be rejected
 };
 static_assert(sizeof(Shared) <= kHeaderBytes, "Shared outgrew its header");
 
 // CTAs per solve and shared bytes per CTA (the launcher's and
 // pose_opt.py's rule).
 __host__ __device__ inline int cluster_size(int M, int L) {
-  const int c = (M + L + kThreads - 1) / kThreads;
+  const int c = (M + L + kWorkers - 1) / kWorkers;
   return c < 1 ? 1 : (c > kMaxCluster ? kMaxCluster : c);
 }
 
@@ -140,33 +148,44 @@ __host__ __device__ inline int shared_bytes(int M, int L, int C, int rounds, int
 }
 
 #ifndef POSE_SOLVE_HOST
-// The cluster primitives.
+// The CTA's shared state, the workers' barrier, and the cluster
+// primitives: this CTA's rank, the cluster barrier in its two halves (a
+// thread arrives, then waits for every thread of the cluster to have
+// arrived; arrive releases what the thread wrote, wait acquires what the
+// others did), and a peer's copy of a shared variable.
 __device__ __forceinline__ unsigned char* shared_base() { return pose_solve_smem; }
+__device__ __forceinline__ void worker_barrier() { asm volatile("bar.sync 1, %0;" ::"n"(kWorkers) : "memory"); }
 __device__ __forceinline__ int cluster_rank() {
   return static_cast<int>(cooperative_groups::this_cluster().block_rank());
 }
-__device__ __forceinline__ void cluster_barrier() { cooperative_groups::this_cluster().sync(); }
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory"); }
 template <typename T>
 __device__ __forceinline__ T* peer_state(T* p, int rank) {
   return cooperative_groups::this_cluster().map_shared_rank(p, static_cast<unsigned>(rank));
 }
 #endif
 
-// Where an LM iteration's time goes, seen from CTA 0's thread 0 (built
-// with POSE_SOLVE_SPLIT=1 only): cycles of the pass, the warp and CTA sums,
-// the cluster barrier, the gather from the peers, the serial step and the
-// broadcast of the candidate; then the passes.
-constexpr int kSplitSlots = 6;
+// Where an LM iteration's time goes (built with POSE_SOLVE_SPLIT=1 only):
+// cycles of CTA 0's thread 0 (the solving warp, the critical path) in the
+// speculative step, the wait at the cluster barrier, the gather from the
+// peers, the serial step and the broadcast of the candidate; then of a
+// worker (thread 32) in its pass and in its sums up to its arrival; then
+// the passes.
+constexpr int kSplitSlots = 7;
 #ifdef POSE_SOLVE_SPLIT
 __device__ unsigned long long g_split[kSplitSlots + 1];
 struct Split {
   bool on;
   long long t;
   unsigned long long c[kSplitSlots];
-  __device__ void start() {
-    on = blockIdx.x == 0 && threadIdx.x == 0;
+  __device__ void start(int tid) {
+    on = blockIdx.x == 0 && threadIdx.x == tid;
     t = clock64();
     for (int k = 0; k < kSplitSlots; ++k) c[k] = 0;
+  }
+  __device__ void begin() {
+    if (on) t = clock64();
   }
   __device__ void mark(int slot) {
     if (on) {
@@ -177,14 +196,15 @@ struct Split {
   }
   __device__ void flush(int passes) {
     if (on) {
-      for (int k = 0; k < kSplitSlots; ++k) g_split[k] += c[k];
-      g_split[kSplitSlots] += static_cast<unsigned long long>(passes);
+      for (int k = 0; k < kSplitSlots; ++k) atomicAdd(&g_split[k], c[k]);
+      if (threadIdx.x == 0) atomicAdd(&g_split[kSplitSlots], static_cast<unsigned long long>(passes));
     }
   }
 };
 #else
 struct Split {
-  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void start(int) {}
+  __device__ __forceinline__ void begin() {}
   __device__ __forceinline__ void mark(int) {}
   __device__ __forceinline__ void flush(int) {}
 };
@@ -291,14 +311,14 @@ __device__ __forceinline__ void accumulate_row(float* acc, const float* J, float
   for (int i = 0; i < 6; ++i) acc[21 + i] += wj[i] * r;
 }
 
-// One pass over this thread's rows at (R, t), adding H, g and the error
-// into acc.  kGate: first set the masks to valid & chi2 <= threshold at
-// this pose, and count the inliers into acc[kCount]; kSums false: only
-// that.
+// One pass over a worker's rows (points, then lines, kWorkers apart) at
+// (R, t), adding H, g and the error into acc.  kGate: first set the masks
+// to valid & chi2 <= threshold at this pose, and count the inliers into
+// acc[kCount]; kSums false: only that.
 template <bool kGate, bool kSums>
 __device__ __forceinline__ void pass(const Cam& cam, const Rows& rows, const float* R, const float* t, bool huber,
                                      float* acc) {
-  for (int k = threadIdx.x; k < rows.np + rows.nl; k += kThreads) {
+  for (int k = threadIdx.x - 32; k < rows.np + rows.nl; k += kWorkers) {
     if (k < rows.np) {
       const int i = k;
       if (!(kGate ? rows.p_valid[i] : rows.p_in[i])) {
@@ -387,29 +407,40 @@ __device__ __forceinline__ float warp_reduce_scatter(float* v) {
   return v[0];
 }
 
-// The cluster's sum of every thread's 32 slots, in a fixed order: within
-// each warp, the warps in index order, the CTAs in rank order.  Every
-// thread calls it; lane k of warp 0 gets slot k's sum, the same bits in
-// every CTA of the cluster (other threads get 0).
-__device__ __forceinline__ float cluster_sum(Shared* S, float* acc, int parity, int C, Split& split) {
+// The cluster's sum of every worker's 32 slots, in a fixed order: within
+// each warp, the worker warps in index order, the CTAs in rank order.  A
+// worker adds its slots to the CTA's partial (warp 1 sums the worker
+// warps), and arrives at the cluster barrier and waits there.
+__device__ __forceinline__ void worker_sums(Shared* S, float* acc, int parity) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  S->warp[warp][lane] = warp_reduce_scatter(acc);
-  __syncthreads();
-  if (warp == 0) {
+  S->warp[warp - 1][lane] = warp_reduce_scatter(acc);
+  worker_barrier();
+  if (warp == 1) {
     float s = S->warp[0][lane];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) s += S->warp[w][lane];
     S->part[parity][lane] = s;
   }
+  cluster_arrive();
+  cluster_wait();
+}
+
+// Warp 0, having arrived at the cluster barrier: waits there, then returns
+// on lane k the cluster's sum of slot k, the same bits in every CTA.
+__device__ __forceinline__ float gather(Shared* S, int parity, int C, Split& split) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+  cluster_wait();
   split.mark(1);
-  cluster_barrier();
-  split.mark(2);
-  float tot = 0.0f;
-  if (warp == 0) {
-    tot = peer_state(S, 0)->part[parity][lane];
-    for (int r = 1; r < C; ++r) tot += peer_state(S, r)->part[parity][lane];
+  float v[kMaxCluster];
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) v[r] = r < C ? peer_state(S, r)->part[parity][lane] : 0.0f;
+  float tot = v[0];
+#pragma unroll
+  for (int r = 1; r < kMaxCluster; ++r) {
+    if (r < C) tot += v[r];
   }
-  split.mark(3);
+  split.mark(2);
   return tot;
 }
 
@@ -453,82 +484,25 @@ __device__ __forceinline__ void retract(const float* xi, const float* R, const f
 // Index of H[i][j], i <= j, among the 21 upper entries (row-major).
 __host__ __device__ constexpr int upper(int i, int j) { return i * (11 - i) / 2 + j; }
 
-#if POSE_SOLVE_WARP_SOLVE
-// The candidate on warp 0: lane i < 6 holds row i of [Hd | g]; lane 0
-// then runs the exponential map.  The same elimination as below, row by
-// row on the lanes.  Every lane of warp 0 calls it.
-__device__ __forceinline__ void candidate(Shared* S, float lam) {
-  const int lane = threadIdx.x & 31;
-  const int row = lane < 6 ? lane : 5;
-  float a[6], b = S->keep[21 + row];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    const float h = S->keep[row <= j ? upper(row, j) : upper(j, row)];
-    a[j] = j == row ? h + lam * h + 1e-8f : h;
-  }
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {
-    // The first largest |pivot| among rows k..5 (lanes 6 and 7 out).
-    float m = (lane >= k && lane < 6) ? fabsf(a[k]) : -1.0f;
-    int p = lane;
-#pragma unroll
-    for (int off = 4; off >= 1; off >>= 1) {
-      const float om = __shfl_xor_sync(0xffffffffu, m, off);
-      const int op = __shfl_xor_sync(0xffffffffu, p, off);
-      if (om > m || (om == m && op < p)) {
-        m = om;
-        p = op;
-      }
-    }
-    const int src = lane == k ? p : (lane == p ? k : lane);
-#pragma unroll
-    for (int j = k; j < 6; ++j) a[j] = __shfl_sync(0xffffffffu, a[j], src);
-    b = __shfl_sync(0xffffffffu, b, src);
-    const float inv = 1.0f / __shfl_sync(0xffffffffu, a[k], k);
-    const float l = a[k] * inv;
-#pragma unroll
-    for (int j = k + 1; j < 6; ++j) {
-      const float pj = __shfl_sync(0xffffffffu, a[j], k);
-      if (lane > k) a[j] -= l * pj;
-    }
-    const float pb = __shfl_sync(0xffffffffu, b, k);
-    if (lane > k) b -= l * pb;
-  }
-  float x[6];
-#pragma unroll
-  for (int i = 5; i >= 0; --i) {
-    float s = b;
-#pragma unroll
-    for (int j = i + 1; j < 6; ++j) s -= a[j] * x[j];
-    x[i] = __shfl_sync(0xffffffffu, s / a[i], i);
-  }
-  if (lane == 0) {
-    float xi[6];
-#pragma unroll
-    for (int i = 0; i < 6; ++i) xi[i] = -x[i];
-    retract(xi, S->R, S->t, S->R2, S->t2);
-  }
-}
-#else
-// The candidate on lane 0 of warp 0: xi = -(H + lam diag(H) + 1e-8 I)^-1 g
-// from the kept sums by Gaussian elimination with partial pivoting on
+// A candidate on one thread: xi = -(H + lam diag(H) + 1e-8 I)^-1 g from
+// the sums `keep` by Gaussian elimination with partial pivoting on
 // [Hd | g] in registers (the first largest |pivot|; the swaps as selects),
 // back substitution, then (R2, t2) = exp(xi) (R, t).
-__device__ __forceinline__ void candidate(Shared* S, float lam) {
-  if ((threadIdx.x & 31) != 0) return;
+__device__ __forceinline__ void candidate(const float* keep, float lam, const float* R, const float* t, float* R2,
+                                          float* t2) {
   float A[6][6], b[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
 #pragma unroll
     for (int j = i; j < 6; ++j) {
-      A[i][j] = S->keep[upper(i, j)];
+      A[i][j] = keep[upper(i, j)];
       A[j][i] = A[i][j];
     }
   }
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
     A[i][i] = A[i][i] + lam * A[i][i] + 1e-8f;
-    b[i] = S->keep[21 + i];
+    b[i] = keep[21 + i];
   }
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
@@ -573,9 +547,8 @@ __device__ __forceinline__ void candidate(Shared* S, float lam) {
   float xi[6];
 #pragma unroll
   for (int i = 0; i < 6; ++i) xi[i] = -b[i];
-  retract(xi, S->R, S->t, S->R2, S->t2);
+  retract(xi, R, t, R2, t2);
 }
-#endif
 
 __device__ __forceinline__ void load_pose(const float* sR, const float* st, float* R, float* t) {
 #pragma unroll
@@ -626,9 +599,16 @@ __global__ void __launch_bounds__(kThreads) pose_solve_kernel(
     if (tid < 3) S->t[tid] = t0[b * 3 + tid];
   }
   __syncthreads();
-  Split split;
-  split.start();
-
+  // Warp 0 solves: its lane 0 forms each candidate, and while the workers
+  // run a pass it forms the one that follows should the pass's candidate
+  // be rejected (the kept sums with lam x 4), so that a rejected step
+  // costs no serial step.  It arrives at the cluster barrier before that
+  // (it publishes nothing), so the workers never wait for it.  Workers
+  // (warps 1..8) run the passes.
+  Split split, worker_split;
+  split.start(0);
+  worker_split.start(32);
+  const bool solver = lane == 0 && warp == 0;
   float lam = 1e-3f;   // warp 0's
   int parity = 0;
   float R[9], t[3], acc[kSlots];
@@ -636,61 +616,84 @@ __global__ void __launch_bounds__(kThreads) pose_solve_kernel(
     const bool huber = rnd < 2;
     // The round's first pass, at its pose: the previous round's gating,
     // then H, g and err0 under the new masks.
-    load_pose(S->R, S->t, R, t);
+    if (warp > 0) {
+      worker_split.begin();
+      load_pose(S->R, S->t, R, t);
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
-    if (rnd == 0) {
-      pass<false, true>(cam, rows, R, t, huber, acc);
+      for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+      if (rnd == 0) {
+        pass<false, true>(cam, rows, R, t, huber, acc);
+      } else {
+        pass<true, true>(cam, rows, R, t, huber, acc);
+      }
+      worker_split.mark(5);
+      worker_sums(S, acc, parity);
+      worker_split.mark(6);
     } else {
-      pass<true, true>(cam, rows, R, t, huber, acc);
-    }
-    split.mark(0);
-    float tot = cluster_sum(S, acc, parity, C, split);
-    parity ^= 1;
-    if (warp == 0) {
+      cluster_arrive();
+      split.mark(0);
+      const float tot = gather(S, parity, C, split);
       if (lane < kAcc) S->keep[lane] = tot;
       __syncwarp();
       lam = 1e-3f;
-      candidate(S, lam);
+      if (solver) candidate(S->keep, lam, S->R, S->t, S->R2, S->t2);
+      split.mark(3);
     }
-    split.mark(4);
+    parity ^= 1;
     __syncthreads();
-    split.mark(5);
+    split.mark(4);
     for (int it = 0; it < iters; ++it) {
-      // One pass at the candidate: err1, and H, g, err0 should it be kept.
-      load_pose(S->R2, S->t2, R, t);
+      const bool more = it + 1 < iters;
+      if (warp > 0) {
+        // One pass at the candidate: err1, and H, g, err0 should it be kept.
+        worker_split.begin();
+        load_pose(S->R2, S->t2, R, t);
 #pragma unroll
-      for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
-      pass<false, true>(cam, rows, R, t, huber, acc);
-      split.mark(0);
-      tot = cluster_sum(S, acc, parity, C, split);
-      parity ^= 1;
-      if (warp == 0) {
+        for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+        pass<false, true>(cam, rows, R, t, huber, acc);
+        worker_split.mark(5);
+        worker_sums(S, acc, parity);
+        worker_split.mark(6);
+      } else {
+        cluster_arrive();
+        if (solver && more) candidate(S->keep, fminf(fmaxf(lam * 4.0f, 1e-9f), 1e6f), S->R, S->t, S->Rr, S->tr);
+        split.mark(0);
+        const float tot = gather(S, parity, C, split);
         const bool accept = __shfl_sync(0xffffffffu, tot, kErr) < S->keep[kErr];
         __syncwarp();
         if (accept) {
           if (lane < kAcc) S->keep[lane] = tot;
           if (lane < 9) S->R[lane] = S->R2[lane];
           if (lane < 3) S->t[lane] = S->t2[lane];
+        } else if (more) {
+          if (lane < 9) S->R2[lane] = S->Rr[lane];
+          if (lane < 3) S->t2[lane] = S->tr[lane];
         }
         __syncwarp();
         lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.0f, 1e-9f), 1e6f);
         if (lane == 0) rows.steps[rnd * iters + it] = accept ? 1 : 0;
-        if (it + 1 < iters) candidate(S, lam);
+        if (solver && accept && more) candidate(S->keep, lam, S->R, S->t, S->R2, S->t2);
+        split.mark(3);
       }
-      split.mark(4);
+      parity ^= 1;
       __syncthreads();
-      split.mark(5);
+      split.mark(4);
     }
   }
 
   // The last round's gating at its pose, and the inlier count.
-  load_pose(S->R, S->t, R, t);
+  float count = 0.0f;
+  if (warp > 0) {
+    load_pose(S->R, S->t, R, t);
 #pragma unroll
-  for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
-  pass<true, false>(cam, rows, R, t, false, acc);
-  split.mark(0);
-  const float count = cluster_sum(S, acc, parity, C, split);
+    for (int k = 0; k < kSlots; ++k) acc[k] = 0.0f;
+    pass<true, false>(cam, rows, R, t, false, acc);
+    worker_sums(S, acc, parity);
+  } else {
+    cluster_arrive();
+    count = gather(S, parity, C, split);
+  }
+  __syncthreads();
   {
     const long long pg = b * M + p0, lg = b * L + l0;
     for (int i = tid; i < np; i += kThreads) p_in[pg + i] = rows.p_in[i];
@@ -703,8 +706,10 @@ __global__ void __launch_bounds__(kThreads) pose_solve_kernel(
     for (int i = tid; i < rounds * iters; i += kThreads) steps[b * rounds * iters + i] = rows.steps[i];
   }
   split.flush(rounds * (iters + 1) + 1);
+  worker_split.flush(0);
   // No CTA leaves while a peer may still read its partial sums.
-  cluster_barrier();
+  cluster_arrive();
+  cluster_wait();
 }
 
 }  // namespace

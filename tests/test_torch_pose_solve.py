@@ -178,6 +178,7 @@ _HOST_SHIM = r"""
 #include <cmath>
 #include <cstring>
 #include <memory>
+#include <optional>
 #include <thread>
 #include <vector>
 #define POSE_SOLVE_HOST 1
@@ -197,11 +198,12 @@ struct HostWarp {
   alignas(8) unsigned char ex[2][32 * 8];
 };
 // A CTA: its own shared memory (filled with NaN bytes: nothing may read
-// what it did not write), its barrier and its warps.
+// what it did not write), its barrier, its workers' barrier and its warps.
 struct HostCta {
-  HostCta(int bytes, int threads, int rank_) : smem(bytes, 0xff), block(threads), warps(threads / 32), rank(rank_) {}
+  HostCta(int bytes, int threads, int workers, int rank_)
+      : smem(bytes, 0xff), block(threads), workers(workers), warps(threads / 32), rank(rank_) {}
   std::vector<unsigned char> smem;
-  std::barrier<> block;
+  std::barrier<> block, workers;
   std::vector<HostWarp> warps;
   int rank;
 };
@@ -212,6 +214,7 @@ struct HostCluster {
 thread_local HostCta* t_cta = nullptr;
 thread_local HostCluster* t_cluster = nullptr;
 thread_local int t_phase = 0;
+thread_local std::optional<std::barrier<>::arrival_token> t_arrival;
 inline void __syncthreads() { t_cta->block.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { t_cta->warps[threadIdx.x >> 5].bar.arrive_and_wait(); }
 template <class T> T host_exchange(T v, int src_lane) {
@@ -226,10 +229,15 @@ template <class T> T host_exchange(T v, int src_lane) {
 }
 template <class T> T __shfl_sync(unsigned, T v, int lane) { return host_exchange(v, lane & 31); }
 template <class T> T __shfl_xor_sync(unsigned, T v, int mask) { return host_exchange(v, (threadIdx.x & 31) ^ mask); }
-// The cluster primitives.
+// The CTA's shared state, the workers' barrier and the cluster primitives.
 inline unsigned char* shared_base() { return t_cta->smem.data(); }
+inline void worker_barrier() { t_cta->workers.arrive_and_wait(); }
 inline int cluster_rank() { return t_cta->rank; }
-inline void cluster_barrier() { t_cluster->all->arrive_and_wait(); }
+inline void cluster_arrive() { t_arrival.emplace(t_cluster->all->arrive()); }
+inline void cluster_wait() {
+  t_cluster->all->wait(std::move(*t_arrival));
+  t_arrival.reset();
+}
 template <class T> T* peer_state(T* p, int rank) {
   const long off = reinterpret_cast<unsigned char*>(p) - t_cta->smem.data();
   return reinterpret_cast<T*>(t_cluster->ctas[rank]->smem.data() + off);
@@ -252,7 +260,7 @@ extern "C" void host_pose_solve(const float* R0, const float* t0, const float* p
     std::vector<std::unique_ptr<HostCta>> ctas;
     HostCluster cluster{&all, {}};
     for (int r = 0; r < C; ++r) {
-      ctas.push_back(std::make_unique<HostCta>(bytes, kThreads, r));
+      ctas.push_back(std::make_unique<HostCta>(bytes, kThreads, kWorkers, r));
       cluster.ctas.push_back(ctas.back().get());
     }
     std::vector<std::thread> threads;
