@@ -210,8 +210,11 @@ kernels per frame side by side.  ``python3 chip_smoke.py
 through the package at DIR and prints how their ATEs and the deferred
 BAs' lags repeat.  ``python3 chip_smoke.py --pose-split [DIR]`` times the
 pose-solve kernel's serial step on one thread against one warp (and DIR's
-kernel), and splits an LM iteration into pass, sums, cluster barrier,
-gather, serial step and broadcast.
+kernel), and splits an LM iteration into its parts.  ``python3
+chip_smoke.py --solver-probe DIR [VARIANT.cu ...]`` drives phases 5, 10
+and 11 (a) with this kernel, DIR's, the plain solve and each variant
+source in turn, and holds every solve of this kernel's phase 11 (a) to
+the plain version on its inputs.
 Imports nothing of JAX.
 """
 
@@ -3192,27 +3195,14 @@ def pose_split(parent=None):
     jobs = {"this": (src, ()), "split": (src, ("-DPOSE_SOLVE_SPLIT=1",))}
     if parent is not None:
         jobs["parent"] = (os.path.join(os.path.abspath(parent), "orb_line_slam_tpu_torch", "csrc", "pose_solve.cu"), ())
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     t0 = time.perf_counter()
-    for name, (path, flags) in jobs.items():
-        out = _build.BUILD_DIR / f"libpose_solve_{name}.so"
-        cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
-               *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(out), path]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+    started = {name: build_pose_solve(name, path, flags) for name, (path, flags) in jobs.items()}
     libs = {}
-    for name, (proc, out) in procs.items():
-        stdout, stderr = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed on the {name} build of pose_solve.cu:\n{stderr[-3000:]}")
-        usage = [ln.split(":", 1)[-1].strip() for ln in (stdout + stderr).splitlines() if "Used" in ln or "spill" in ln]
-        print(f"pose split: {name} built {time.perf_counter() - t0:.1f} s after the start (ptxas: {'; '.join(usage)})")
-        lib = ctypes.CDLL(str(out))
-        lib.pose_solve_launch.argtypes = [*pose_opt._ARGTYPES, ctypes.c_void_p]
-        lib.pose_solve_launch.restype = ctypes.c_int
-        if name == "split":
-            lib.pose_solve_split.argtypes = [ctypes.c_void_p]
-            lib.pose_solve_split.restype = ctypes.c_int
-        libs[name] = lib
+    for name, job in started.items():
+        libs[name], usage = load_pose_solve(name, *job)
+        print(f"pose split: {name} built {time.perf_counter() - t0:.1f} s after the start (ptxas: {usage})")
+    libs["split"].pose_solve_split.argtypes = [ctypes.c_void_p]
+    libs["split"].pose_solve_split.restype = ctypes.c_int
 
     def use(name):
         _build._FUNCTIONS["pose_solve"] = libs[name].pose_solve_launch
@@ -3278,6 +3268,149 @@ def pose_split(parent=None):
               + ", ".join(f"{slot} {row[f'{slot}_us_per_pass']:.3f}" for slot in (*POSE_SPLIT_SLOTS, *POSE_WORKER_SLOTS))
               + f" (split build {row['device_us']:.1f} us, {row['sm_mhz']:.0f} MHz)")
     print(json.dumps({"pose_split": {"device_us": times, "split": split}}), flush=True)
+
+
+def build_pose_solve(name, source, flags=()):
+    """nvcc on a pose-solve source (another tree's, or a variant) into
+    csrc/build/libpose_solve_<name>.so, started now; returns (process,
+    library path)."""
+    from orb_line_slam_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / f"libpose_solve_{name}.so"
+    cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v", *flags,
+           "-shared", "-Xcompiler", "-fPIC", "-o", str(out), source]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out
+
+
+def load_pose_solve(name, proc, out):
+    """Wait for build_pose_solve's nvcc; returns the library (its
+    pose_solve_launch typed as the wrapper calls it) and ptxas' report."""
+    import ctypes
+
+    from orb_line_slam_tpu_torch.backend import pose_opt
+
+    stdout, stderr = proc.communicate()
+    check(proc.returncode == 0, f"nvcc failed on the {name} build of pose_solve:\n{stderr[-3000:]}")
+    lib = ctypes.CDLL(str(out))
+    lib.pose_solve_launch.argtypes = [*pose_opt._ARGTYPES, ctypes.c_void_p]
+    lib.pose_solve_launch.restype = ctypes.c_int
+    usage = [ln.split(":", 1)[-1].strip() for ln in (stdout + stderr).splitlines() if "Used" in ln or "spill" in ln]
+    return lib, "; ".join(usage)
+
+
+class PlainAudit:
+    """While entered, every launch of the pose-solve kernel is also run
+    through the plain version on the same inputs, and the two compared
+    (rows of ``self.rows``)."""
+
+    def __init__(self):
+        self.rows = []
+
+    def __enter__(self):
+        import torch
+
+        from orb_line_slam_tpu_torch.backend import pose_opt
+
+        kernel = pose_opt.pose_solve_cuda
+
+        def audited(*a):
+            got = kernel(*a)
+            args, rounds, iters = a[:16], a[16], a[17]
+            batched = args[0].dim() == 3
+            for b in range(args[0].shape[0] if batched else 1):
+                one = [x[b] for x in args[:11]] if batched else list(args[:11])
+                k = [x[b] for x in got] if batched else list(got)
+                p = pose_opt.pose_solve_plain(*one, *args[11:], rounds, iters)
+                centre = [-(x[0].T @ x[1]).double().cpu().numpy() for x in (k, p)]
+                self.rows.append({"rounds": rounds, "rad": rotation_gap(k[0].cpu().numpy()[None],
+                                                                        p[0].cpu().numpy()[None]),
+                                  "centre_mm": float(1e3 * np.linalg.norm(centre[0] - centre[1])),
+                                  "inliers_gap": abs(int(k[4]) - int(p[4])),
+                                  "masks_agree": float((k[2] == p[2]).float().mean()),
+                                  "decisions_differing": int((k[5] != p[5]).sum())})
+            return got
+
+        self.kernel = kernel
+        torch.library.register_kernel("orb_line_slam::pose_solve", "cuda", audited)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.library.register_kernel("orb_line_slam::pose_solve", "cuda", self.kernel)
+
+    def summary(self):
+        r = self.rows
+        return {"solves": len(r), "max_centre_mm": max(x["centre_mm"] for x in r),
+                "median_centre_mm": float(np.median([x["centre_mm"] for x in r])),
+                "max_rad": max(x["rad"] for x in r), "max_inliers_gap": max(x["inliers_gap"] for x in r),
+                "min_masks_agree": min(x["masks_agree"] for x in r),
+                "solves_with_a_differing_decision": sum(x["decisions_differing"] > 0 for x in r)}
+
+
+def solver_probe(parent, variants):
+    """``python3 chip_smoke.py --solver-probe DIR [VARIANT.cu ...]``: the
+    pinned phases 5 and 10 (loop closing on and off) and the shipping
+    phase 11 (a), driven with each pose solver in turn: this checkout's
+    kernel, DIR's kernel (an unpacked parent commit), the plain version on
+    the card, and a kernel built from each VARIANT source.  Prints their
+    ATEs beside the bounds and checks of phases 10 and 11 (a), and the
+    keyframes' frames of 11 (a); with this kernel, every solve of phase
+    11 (a) is also run through the plain version on its inputs and the
+    two compared (PlainAudit).  The schedules are deterministic, so each
+    run stands for every run of its solver."""
+    sys.path.insert(0, ROOT)
+    cfg, ccfg = kitti_config(), loop_config()
+    jobs = [sequence_job(cfg, N_FRAMES), loop_job(ccfg)]
+    frames, cframes = render_jobs(jobs, min(8, os.cpu_count() or 1))
+    poses, cposes = jobs[0][1], jobs[1][1]
+    phase_device()
+    import orb_line_slam_tpu_torch  # noqa: F401  (sets the fp32 policy)
+    from orb_line_slam_tpu_torch.backend import pose_opt
+    from orb_line_slam_tpu_torch.ops import _build
+    from orb_line_slam_tpu_torch.pipeline import track_step, tracking
+
+    _build.build()
+    sources = {"parent": os.path.join(os.path.abspath(parent), "orb_line_slam_tpu_torch", "csrc", "pose_solve.cu")}
+    sources.update({os.path.splitext(os.path.basename(v))[0]: os.path.abspath(v) for v in variants})
+    started = {name: build_pose_solve(name, src) for name, src in sources.items()}
+    fns = {"this": _build.kernel("pose_solve", pose_opt._ARGTYPES)}
+    fns.update({name: load_pose_solve(name, *job)[0].pose_solve_launch for name, job in started.items()})
+    rows = {}
+    for solver in ("this", "parent", "plain", *(n for n in fns if n not in ("this", "parent"))):
+        _build._FUNCTIONS["pose_solve"] = fns.get(solver, fns["this"])
+        saved = track_step.pose_optimize, tracking.pose_optimize
+        if solver == "plain":
+            track_step.pose_optimize = tracking.pose_optimize = pose_opt.pose_optimize_reference
+        try:
+            *_, ate5, _ = run_slice(cfg, poses, frames, f"solver probe {solver}: slice", 0.1, check_launches=False)
+            *_, on, _ = run_slice(ccfg, cposes, cframes, f"solver probe {solver}: loop slice", 0.1,
+                                  use_loop_closing=True, check_launches=False)
+            *_, off, _ = run_slice(ccfg, cposes, cframes, f"solver probe {solver}: loop slice, loop closing off",
+                                   0.1, check_launches=False)
+            audit = PlainAudit() if solver == "this" else None
+            if audit is not None:
+                audit.__enter__()
+            try:
+                slam, *_, ate11, _ = run_slice(bench_pipeline_config(), poses, frames,
+                                               f"solver probe {solver}: shipping pipeline", 0.1, use_loop_closing=True,
+                                               shipping=True, warmup=12, check_launches=False)
+            finally:
+                if audit is not None:
+                    audit.__exit__()
+        finally:
+            track_step.pose_optimize, tracking.pose_optimize = saved
+        tr = slam.tracker
+        bound11 = max(1.25 * ate5, ate5 + 0.02)
+        rows[solver] = {"ate_rmse_synth_m": ate5, "ate_rmse_loop_m": on, "ate_synth_noloop_m": off,
+                        "phase_10_holds": on <= 1.1 * JAX_CPU_REFERENCE_ATE_LOOP_M + 0.01 and on < off,
+                        "ate_rmse_pipeline_m": ate11, "phase_11a_bound_m": bound11, "phase_11a_holds": ate11 <= bound11,
+                        "phase_11a_kf_frames": [int(f) for f in tr.map.kf_frame_id[tr.map.kf_valid]]}
+        if audit is not None:
+            rows[solver]["phase_11a_audit"] = audit.summary()
+        print(f"solver probe {solver}: " + json.dumps(rows[solver]), flush=True)
+    print(json.dumps({"solver_probe": rows}), flush=True)
 
 
 SCHEDULE_REPLAY_ABOVE_M = 0.02    # --schedule-probe replays the first B = 2 run above this
@@ -3664,5 +3797,7 @@ if __name__ == "__main__":
         schedule_probe(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--pose-split"] and len(sys.argv) in (2, 3):
         pose_split(sys.argv[2] if len(sys.argv) == 3 else None)
+    elif sys.argv[1:2] == ["--solver-probe"] and len(sys.argv) >= 3:
+        solver_probe(sys.argv[2], sys.argv[3:])
     else:
         main()

@@ -49,16 +49,17 @@ _N_TENSORS = 11
 # Kernel launches since import (or since the caller last reset it).
 launches = 0
 
-# The kernel's launch rule (csrc/pose_solve.cu: kThreads, kMaxCluster,
-# kHeaderBytes, kMaxSharedBytes, cluster_size, shared_bytes): a CTA of 256
-# threads holds its share of the rows in shared memory, 30 bytes a point
-# and 42 a line after a 4096-byte header, at most 227 KB.
-_THREADS, _MAX_CLUSTER, _HEADER_BYTES, MAX_SHARED_BYTES = 256, 8, 4096, 232448
+# The kernel's launch rule (csrc/pose_solve.cu: kWorkers, kMaxCluster,
+# kHeaderBytes, kMaxSharedBytes, cluster_size, shared_bytes): a CTA's 256
+# worker threads take a row each, at most 8 CTAs a solve; a CTA holds its
+# share of the rows in shared memory, 30 bytes a point and 42 a line after
+# a 4096-byte header, at most 227 KB.
+_WORKERS, _MAX_CLUSTER, _HEADER_BYTES, MAX_SHARED_BYTES = 256, 8, 4096, 232448
 
 
 def cluster_size(M: int, L: int) -> int:
     """CTAs in the cluster of one solve of M points and L lines."""
-    return min(_MAX_CLUSTER, max(1, -(-(M + L) // _THREADS)))
+    return min(_MAX_CLUSTER, max(1, -(-(M + L) // _WORKERS)))
 
 
 def shared_bytes(M: int, L: int, rounds: int, iters: int) -> int:

@@ -55,10 +55,11 @@
 //    + 1 passes (45 at 4x10, 19 at 2x8), where the one-block kernel this
 //    replaces ran a second pass for err1 after each (88 at 4x10).
 //    The reduction: a butterfly reduce-scatter inside each worker warp (31
-//    shuffles for 32 slots, lane k ends with slot k), the worker warps in
-//    index order (warp 1, after the workers' named barrier), then one
-//    cluster barrier, and warp 0 sums the C CTAs' partials in rank order
-//    through distributed shared memory.  Every CTA sums in the same order,
+//    shuffles for 32 slots, lane k ends with slot k), the 8 worker warps
+//    in index order (warp 1, after the workers' named barrier), then one
+//    cluster barrier, and warp 0 sums the C CTAs' partials pairwise by
+//    rank through distributed shared memory.  Every CTA sums in the same
+//    order,
 //    so all hold the same bits, solve the same 6x6 system to the same
 //    candidate and need no broadcast; a rerun, or a solve's position in a
 //    batch, gives the same bits.  The partials are double-buffered by the
@@ -407,10 +408,18 @@ __device__ __forceinline__ float warp_reduce_scatter(float* v) {
   return v[0];
 }
 
-// The cluster's sum of every worker's 32 slots, in a fixed order: within
-// each warp, the worker warps in index order, the CTAs in rank order.  A
-// worker adds its slots to the CTA's partial (warp 1 sums the worker
-// warps), and arrives at the cluster barrier and waits there.
+// Pairwise sum of 8 values: ((v0 + v1) + (v2 + v3)) + ((v4 + v5) + (v6 + v7)).
+__device__ __forceinline__ float pairwise8(const float* v) {
+  return ((v[0] + v[1]) + (v[2] + v[3])) + ((v[4] + v[5]) + (v[6] + v[7]));
+}
+
+static_assert(kMaxCluster == 8, "pairwise8 sums the ranks' partials");
+
+// The cluster's sum of every worker's 32 slots, in a fixed order: the
+// butterfly within each warp, the 8 worker warps in index order, then the
+// CTAs' partials pairwise by rank.  A worker adds its slots to the CTA's
+// partial (warp 1 sums the worker warps), and arrives at the cluster
+// barrier and waits there.
 __device__ __forceinline__ void worker_sums(Shared* S, float* acc, int parity) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   S->warp[warp - 1][lane] = warp_reduce_scatter(acc);
@@ -435,11 +444,7 @@ __device__ __forceinline__ float gather(Shared* S, int parity, int C, Split& spl
   float v[kMaxCluster];
 #pragma unroll
   for (int r = 0; r < kMaxCluster; ++r) v[r] = r < C ? peer_state(S, r)->part[parity][lane] : 0.0f;
-  float tot = v[0];
-#pragma unroll
-  for (int r = 1; r < kMaxCluster; ++r) {
-    if (r < C) tot += v[r];
-  }
+  const float tot = pairwise8(v);   // the absent ranks' zeros add nothing
   split.mark(2);
   return tot;
 }

@@ -5,9 +5,7 @@ whose last argument is the stream and which returns ``cudaGetLastError()``.
 It is compiled with nvcc for sm_90a into ``csrc/build/lib<name>.so`` at
 first use (rebuilt when the source is newer), loaded with ctypes, and its
 function pointer and ``argtypes`` are resolved once.  A failed build
-raises with the compiler's output; nothing falls back.  A build with
-extra flags (a variant kept for measurement) can take a ``tag``: its
-library is ``csrc/build/lib<name><tag>.so``.
+raises with the compiler's output; nothing falls back.
 """
 
 from __future__ import annotations
@@ -34,14 +32,14 @@ def _nvcc() -> str:
     return cand
 
 
-def _paths(name: str, tag: str = "") -> tuple[Path, Path]:
-    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}{tag}.so"
+def _paths(name: str) -> tuple[Path, Path]:
+    return CSRC / f"{name}.cu", BUILD_DIR / f"lib{name}.so"
 
 
-def _start_build(name: str, extra_flags=(), tag: str = ""):
+def _start_build(name: str, extra_flags=()):
     """Start nvcc on csrc/<name>.cu unless its library is up to date.
     Returns (process or None, temporary output, library path)."""
-    src, so = _paths(name, tag)
+    src, so = _paths(name)
     if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
         return None, None, so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,12 +62,12 @@ def _finish_build(name: str, proc, tmp: Path, so: Path) -> str:
     return out + err
 
 
-def build(names=SOURCES, extra_flags=(), tag: str = "") -> dict[str, tuple[float, str]]:
+def build(names=SOURCES, extra_flags=()) -> dict[str, tuple[float, str]]:
     """Build the named sources, one nvcc each, all started together.
     Returns per source the seconds from the common start until its build
     had finished, and nvcc's output (empty where nothing was rebuilt)."""
     t0 = time.perf_counter()
-    started = [(name, *_start_build(name, extra_flags, tag)) for name in names]
+    started = [(name, *_start_build(name, extra_flags)) for name in names]
     done = {}
     try:
         for name, proc, tmp, so in started:
@@ -83,8 +81,8 @@ def build(names=SOURCES, extra_flags=(), tag: str = "") -> dict[str, tuple[float
     return done
 
 
-def library_path(name: str, tag: str = "") -> Path:
-    return _paths(name, tag)[1]
+def library_path(name: str) -> Path:
+    return _paths(name)[1]
 
 
 def kernel(name: str, argtypes) -> ctypes._CFuncPtr:
