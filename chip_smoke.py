@@ -53,7 +53,8 @@ Phases (each fails loudly, and the script exits non-zero):
      5e-3 m of the plain version, n_inliers within 3, the inlier masks
      equal on >= 99.5% of rows; the median pose difference and the
      accept/reject decisions that differ are printed; times, own device
-     time, plain version and bound as above;
+     time, plain version and bound as above, with each shape's cluster
+     size and own us per LM iteration;
   4. one frame: build_stereo_frame on the card vs its plain path on the
      CPU, held to the frame contract of tests/test_torch_frontend.py;
      on the card it must launch exactly one orb_describe and one
@@ -114,8 +115,10 @@ Phases (each fails loudly, and the script exits non-zero):
      >= 1 loop detected on the loop-closing worker and corrected on the
      tracking thread, >= 1 global BA solved on the global-BA worker and
      applied by poll_global_ba, ATE within max(1.25 x, + 2 cm) of phase
-     10's pinned run (tests/test_loop_closure_e2e.py's bound); for
-     both, the frames from each deferred local BA's pack to its apply;
+     10's pinned run (tests/test_loop_closure_e2e.py's bound), frames
+     30-32 profiled as in phase 10; for both, the frames from each
+     deferred local BA's pack to its apply, and the tracking thread's
+     wait for each (ms per frame, p50, max; also in phase 14 a);
  12. the monocular slice: 40 TUM-size frames (tum_config) through
      System.track_monocular, state OK, initialised at the JAX package's
      frame, >= 3 keyframes, >= 1 local BA, > 80 map points, one
@@ -208,9 +211,9 @@ in its own process, and prints frames/s, host ms and the profiled
 kernels per frame side by side.  ``python3 chip_smoke.py
 --schedule-probe DIR N OUT`` repeats phases 11 (a) and 14 (a) N times
 through the package at DIR and prints how their ATEs and the deferred
-BAs' lags repeat.  ``python3 chip_smoke.py --pose-split [DIR]`` times the
-pose-solve kernel's serial step on one thread against one warp (and DIR's
-kernel), and splits an LM iteration into its parts.  ``python3
+BAs' lags repeat.  ``python3 chip_smoke.py --pose-split [DIR]`` splits
+an LM iteration of the pose-solve kernel into its parts (and times DIR's
+kernel beside it).  ``python3
 chip_smoke.py --solver-probe DIR [VARIANT.cu ...]`` drives phases 5, 10
 and 11 (a) with this kernel, DIR's, the plain solve and each variant
 source in turn, and holds every solve of this kernel's phase 11 (a) to
@@ -2169,7 +2172,8 @@ def phase_shipping_circuit(poses, frames, pinned_ate):
     loop-closing worker and corrected on the tracking thread, a global BA
     solved on the global-BA worker and applied by poll_global_ba (at a
     keyframe event or at shutdown), and the ATE stay within
-    max(1.25 x, + 2 cm) of phase 10's pinned run."""
+    max(1.25 x, + 2 cm) of phase 10's pinned run.  Frames 30-32 are
+    profiled, as phase 10's are."""
     import threading
 
     from orb_line_slam_tpu_torch.loop import loop_closing
@@ -2187,8 +2191,11 @@ def phase_shipping_circuit(poses, frames, pinned_ate):
     for name, fn in saved.items():
         setattr(cls, name, on_thread(name, fn))
     try:
+        # Frames 30-32 profiled as in phase 10: the pose solves' device
+        # time with the workers' BAs sharing the card, beside the pinned.
         slam, launches, fps, ate, per_frame = run_slice(loop_config(), poses, frames, "shipping circuit", 0.1,
-                                                        use_loop_closing=True, shipping=True)
+                                                        use_loop_closing=True, shipping=True,
+                                                        window=ProfileWindow("shipping circuit", start=30))
     finally:
         for name, fn in saved.items():
             setattr(cls, name, fn)
