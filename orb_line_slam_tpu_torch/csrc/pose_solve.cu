@@ -59,13 +59,14 @@
 //    in index order (warp 1, after the workers' named barrier), then one
 //    cluster barrier, and warp 0 sums the C CTAs' partials pairwise by
 //    rank through distributed shared memory.  Every CTA sums in the same
-//    order,
-//    so all hold the same bits, solve the same 6x6 system to the same
-//    candidate and need no broadcast; a rerun, or a solve's position in a
-//    batch, gives the same bits.  The partials are double-buffered by the
-//    reduction's parity, so one cluster barrier an iteration suffices (a
-//    peer reads buffer p before it arrives at the next barrier, and nobody
-//    writes p again before that barrier completes).
+//    order, so all hold the same bits, solve the same 6x6 system to the
+//    same candidate and need no broadcast; a rerun, or a solve's position
+//    in a batch, gives the same bits.  The partials are double-buffered by
+//    the reduction's parity, so one cluster barrier an iteration suffices
+//    (a peer reads buffer p before it arrives at the next barrier, and
+//    nobody writes p again before that barrier completes).  Which of the
+//    equivalent orders this is matters only to chip_smoke.py's ATE
+//    checks, which float detail decides (PERF.md §6).
 // 4. The serial step, on lane 0 of warp 0 in each CTA: the 6x6 Gaussian
 //    elimination with partial pivoting (the first largest |pivot|, as
 //    LAPACK's getrf) fully unrolled in registers, its row swaps as

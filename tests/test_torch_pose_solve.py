@@ -11,8 +11,11 @@ source ``csrc/pose_solve.cu``) on the CPU:
 - the operator under ``torch.func.vmap`` (B = 3, batched and unbatched
   arguments mixed) against a loop of single calls, through its vmap rule;
 - the kernel source itself, compiled for the host with each CUDA thread
-  a host thread (``__syncthreads`` a barrier, the warp shuffles through a
-  shared array), against the plain version on a batch of two solves.
+  a host thread (each CTA its own shared state, ``__syncthreads``, the
+  workers' barrier and the cluster barrier host barriers, the warp
+  shuffles through a shared array), in clusters of 1, 2 and 4 CTAs,
+  against the plain version on a batch of two solves, and its rerun bit
+  for bit; the wrapper's copy of the launch rule against the source's.
 """
 
 import importlib.util
