@@ -3091,17 +3091,208 @@ def endurance_long():
         host_probe(f"after the {name} run")
 
 
+# The two front-end kernels at phase 3's nine shapes, for --tree-probe,
+# --compare-parent and --front-end-variants: (kernel, shape name, images
+# or pairs b, atlas h, w, keypoints per image or pair n).
+FRONT_END_SEED = 4242
+
+
+def front_end_shapes():
+    shapes = []
+    cells = (("point cell", kitti_config()), ("point+line cell", euroc_config()), ("loop cell", loop_config()))
+    for name, cfg in cells:
+        (h, w), n = cell_atlas_shape(cfg), cfg.orb.n_features
+        shapes += [("orb_describe", name, 2, h, w, n), ("stereo_sad", name, 1, h, w, n)]
+    (h, w), n = cell_atlas_shape(tum_config()), tum_config().orb.n_features
+    shapes.append(("orb_describe", "TUM cell", 1, h, w, n))
+    (h, w), n, b = cell_atlas_shape(cells[0][1]), cells[0][1].orb.n_features, MULTISEQ_KERNEL_PAIRS
+    shapes += [("orb_describe", f"point cell, {b} pairs", 2 * b, h, w, n), ("stereo_sad", f"point cell, {b} pairs", b, h, w, n)]
+    return shapes
+
+
+def front_end_inputs(kernel, b, h, w, n, seed):
+    """Fixed seeded inputs on the card, made as phase 3 makes them (a
+    low-passed atlas, border and out-of-range keypoints among random ones,
+    offsets in [-0.5, 0.5] with exact +-0.5 among them).  orb_describe:
+    (atlas [b, h, w], axy [b, n, 2], delta [b, n, 2]); stereo_sad: (atlas_l,
+    axy_l, atlas_r, cx, cy) for one pair ([h, w], b = 1) or b pairs, with
+    whole-number centres (as stereo_match gives them) in the first half of
+    the keypoints and fractional ones in the second."""
+    import torch
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    imgs = b if kernel == "orb_describe" else 2 * b
+    noise = torch.from_numpy((rng.random((imgs, 1, h, w)) * 255).astype(np.float32)).to(dev)
+    atlas = (torch.nn.functional.avg_pool2d(noise, 5, 1, 2, count_include_pad=False)[:, 0] * 0.7 + noise[:, 0] * 0.3)
+    xy = np.stack([rng.integers(-20, w + 20, (b, n)), rng.integers(-20, h + 20, (b, n))], -1)
+    border = border_keypoints(h, w)
+    xy[:, : len(border)] = border
+    axy = torch.from_numpy(xy.astype(np.int32)).to(dev)
+    if kernel == "orb_describe":
+        delta = rng.uniform(-0.5, 0.5, (b, n, 2)).astype(np.float32)
+        delta[:, :4] = [[0.0, 0.0], [0.5, -0.5], [-0.5, 0.5], [0.5, 0.5]]
+        return atlas.contiguous(), axy, torch.from_numpy(delta).to(dev)
+    cx = np.floor(xy[..., 0] - rng.uniform(0, 100, (b, n))).astype(np.float32)
+    cy = xy[..., 1].astype(np.float32)
+    half = n // 2
+    cx[:, half:] += rng.uniform(0, 1, (b, n - half)).astype(np.float32)
+    cy[:, half:] += rng.uniform(0, 1, (b, n - half)).astype(np.float32)
+    cx, cy = (torch.from_numpy(c).to(dev) for c in (cx, cy))
+    if b == 1:
+        return atlas[0].contiguous(), axy[0].contiguous(), atlas[1].contiguous(), cx[0].contiguous(), cy[0].contiguous()
+    return atlas[:b].contiguous(), axy, atlas[b:].contiguous(), cx, cy
+
+
+def front_end_call(kernel, args):
+    """The wrapper call on these inputs, and its module (for `launches`)."""
+    from orb_line_slam_tpu_torch.ops import describe, stereo_sad
+
+    if kernel == "orb_describe":
+        return (lambda: describe.describe_keypoints(*args)), describe
+    return (lambda: stereo_sad.stereo_sad(*args)), stereo_sad
+
+
+def outputs_hash(outs):
+    """sha256 of the outputs' bytes (on the host), in order."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for t in outs if isinstance(outs, tuple) else (outs,):
+        digest.update(t.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def front_end_probe():
+    """Per shape of front_end_shapes(): the hash of the kernel's outputs
+    on front_end_inputs (seed FRONT_END_SEED + index) and its own device
+    us (torch.profiler, mean of 20 calls)."""
+    import torch
+
+    out = {}
+    for i, (kernel, name, b, h, w, n) in enumerate(front_end_shapes()):
+        fn, module = front_end_call(kernel, front_end_inputs(kernel, b, h, w, n, FRONT_END_SEED + i))
+        res = fn()
+        torch.cuda.synchronize()
+        out[f"{kernel} ({name}: [{b}x{h}x{w}], N={n})"] = {
+            "hash": outputs_hash(res), "device_us": own_device_ms(fn, f"{kernel}_kernel", module) * 1e3}
+    return out
+
+
+# --front-end-variants: build options of the two front-end sources, each
+# timed beside the build that ships (the first of each).
+FRONT_END_VARIANTS = {
+    "orb_describe": {"one warp a keypoint, 16 warps a CTA": (), "two warps a keypoint, 16 warps a CTA":
+                     ("-DORB_DESCRIBE_GROUP=2",), "one warp a keypoint, 8 warps a CTA": ("-DORB_DESCRIBE_WARPS=8",),
+                     "both passes through one copy of the blur": ("-DORB_DESCRIBE_PASS_LOOP=1",)},
+    "stereo_sad": {"8 blocks an SM": (), "registers as the compiler likes": ("-DSTEREO_SAD_MIN_BLOCKS=1",),
+                   "6 blocks an SM": ("-DSTEREO_SAD_MIN_BLOCKS=6",)},
+}
+
+
+def sass_histogram(so):
+    """Static count of each opcode in the library's kernels (cuobjdump)."""
+    import collections
+    import re
+
+    from orb_line_slam_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed on {so}: {out.stderr[-500:]}")
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", out.stdout)
+    return collections.Counter(ops)
+
+
+def front_end_variants():
+    """``python3 chip_smoke.py --front-end-variants``: each front-end
+    source built as shipped and with the options of FRONT_END_VARIANTS,
+    each called through its own library on the point cell's and the
+    batched step's front_end_inputs: the outputs must be the shipped
+    build's bits; own device us of each, in turns (shipped, variants,
+    variants reversed, shipped), ptxas' report and the static count of
+    each opcode of the shipped build."""
+    import ctypes
+    import types
+
+    import torch
+
+    from orb_line_slam_tpu_torch.ops import _build, describe, stereo_sad
+
+    phase_device()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for kernel, variants in FRONT_END_VARIANTS.items():
+        for i, (name, flags) in enumerate(variants.items()):
+            so = _build.BUILD_DIR / f"lib{kernel}_variant{i}.so"
+            cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
+                   *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(_build.CSRC / f"{kernel}.cu")]
+            procs[kernel, name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
+    libs = {}
+    for (kernel, name), (proc, so) in procs.items():
+        stdout, stderr = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on the {name} build of {kernel}:\n{stderr[-3000:]}")
+        fn = getattr(ctypes.CDLL(str(so)), f"{kernel}_launch")
+        fn.argtypes = [*(describe if kernel == "orb_describe" else stereo_sad)._ARGTYPES, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        usage = [ln.split(":", 1)[-1].strip() for ln in (stdout + stderr).splitlines() if "Used" in ln or "spill" in ln]
+        print(f"{kernel} variant ({name}): ptxas {'; '.join(usage)}")
+        libs[kernel, name] = fn
+        if name == next(iter(FRONT_END_VARIANTS[kernel])):
+            hist = sass_histogram(so)
+            print(f"{kernel} as shipped: {sum(hist.values())} SASS instructions, by opcode "
+                  + json.dumps(dict(hist.most_common(24))))
+    dev = torch.device("cuda")
+    bands, rot = describe._kernel_tables_on(dev)
+    rows = {}
+    shapes = [s for s in front_end_shapes() if s[1].startswith("point cell")]
+    for kernel, shape, b, h, w, n in shapes:
+        args = front_end_inputs(kernel, b, h, w, n, FRONT_END_SEED)
+        counter = types.SimpleNamespace(launches=0)
+
+        def call(fn):
+            if kernel == "orb_describe":
+                atlas, axy, delta = args
+                angle = torch.empty((b * n,), dtype=torch.float32, device=dev)
+                desc = torch.empty((b * n, 32), dtype=torch.uint8, device=dev)
+                _build.launch(fn, kernel, dev, atlas.data_ptr(), b, h, w, axy.data_ptr(), delta.data_ptr(), n,
+                              bands.data_ptr(), rot.data_ptr(), describe._INV_BIN, angle.data_ptr(), desc.data_ptr())
+                out = (angle, desc)
+            else:
+                atlas_l, axy_l, atlas_r, cx, cy = args
+                out = torch.empty((*axy_l.shape[:-1], stereo_sad.N_OFFSETS), dtype=torch.float32, device=dev)
+                _build.launch(fn, kernel, dev, atlas_l.data_ptr(), axy_l.data_ptr(), atlas_r.data_ptr(), cx.data_ptr(),
+                              cy.data_ptr(), h, w, n, b * n, out.data_ptr())
+            counter.launches += 1
+            return out
+
+        want = outputs_hash(front_end_call(kernel, args)[0]())
+        names = list(FRONT_END_VARIANTS[kernel])
+        times = {name: [] for name in names}
+        for name in names + names[::-1]:
+            fn = libs[kernel, name]
+            check(outputs_hash(call(fn)) == want, f"{kernel} variant ({name}) at {shape} gives other bits than the shipped build")
+            times[name].append(own_device_ms(lambda: call(fn), f"{kernel}_kernel", counter) * 1e3)
+        rows[f"{kernel} ({shape}: [{b}x{h}x{w}], N={b}x{n})"] = times
+        for name, t in times.items():
+            print(f"{kernel} variant ({name}) at {shape} [{b}x{h}x{w}], N={b}x{n}: own device us "
+                  f"{' / '.join(f'{x:.2f}' for x in t)} (torch.profiler, mean of 20 calls; in turns), same bits")
+    print(json.dumps({"front_end_variants": rows}))
+
+
 def tree_probe(tree, out_path):
     """``python3 chip_smoke.py --tree-probe DIR OUT``: phases 5 and 7's
     slices (their frames, configs and pinned schedule, each with phase 8's
     profile window) driven through the package of the tree at DIR by this
     script's functions, the launch checks off (another tree's kernels
     differ).  Writes to OUT one JSON object: the pose-solve kernel's own
-    device and event us at phase 3's seven shapes (pose_shapes); per slice
-    frames/s, the tracking thread's host ms per frame, the tracker's
-    track_step host ms per call, ATE, launches, and the window's kernels
-    and device ms per frame of the whole frame, the tracking step and its
-    pose solves."""
+    device and event us at phase 3's seven shapes (pose_shapes); the hash
+    of orb_describe's and stereo_sad's outputs on fixed seeded inputs and
+    their own device us at phase 3's nine shapes (front_end_probe); per
+    slice frames/s, the tracking thread's host ms per frame, the tracker's
+    track_step host ms per call, ATE, keyframes, launches, and the
+    window's kernels and device ms per frame of the whole frame, the
+    tracking step and its pose solves."""
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     cfg, lcfg = kitti_config(), euroc_config()
@@ -3114,12 +3305,14 @@ def tree_probe(tree, out_path):
     pkg = os.path.dirname(os.path.abspath(orb_line_slam_tpu_torch.__file__))
     check(pkg == os.path.join(tree, "orb_line_slam_tpu_torch"), f"--tree-probe {tree} imported the package at {pkg}")
     _build.build()
-    out = {"tree": tree, "sources": list(_build.SOURCES), "pose_solve": pose_shape_times(pose_shapes(pose_cells()))}
+    out = {"tree": tree, "sources": list(_build.SOURCES), "pose_solve": pose_shape_times(pose_shapes(pose_cells())),
+           "front_end": front_end_probe()}
     for key, c, job, fr, dt in (("points", cfg, jobs[0], frames, 0.1), ("lines", lcfg, jobs[1], lframes, 0.05)):
         window = ProfileWindow(f"{key} slice of {tree}")
         slam, launches, fps, ate, per_frame = run_slice(c, job[1], fr, f"{key} slice", dt, window=window,
                                                         check_launches=False)
-        out[key] = {"fps": fps, "frame_host_ms": per_frame, "ate_m": ate, "launches": launches,
+        out[key] = {"fps": fps, "frame_host_ms": per_frame, "ate_m": ate, "keyframes": int(slam.map.n_keyframes()),
+                    "launches": launches,
                     "track_step_host_ms_per_call": slam.tracker.timing.table()["track_step"]["ms_per_call"],
                     **window.summary}
     with open(out_path, "w") as f:
@@ -3131,9 +3324,11 @@ def compare_parent(parent):
     tree at DIR (an unpacked parent commit) and of this checkout in turns,
     parent, this, this, parent, each in a process of its own on the same
     card; prints each probe, the pose-solve kernel's own device time at
-    phase 3's seven shapes side by side, and, per slice, this tree's
-    figures beside the parent's (kernels per frame of the tracking step as
-    a share of the parent's)."""
+    phase 3's seven shapes side by side, the front-end kernels' own device
+    time at phase 3's nine shapes side by side (their output hashes must
+    be equal in all four probes), each slice's ATE and keyframes, and, per
+    slice, this tree's figures beside the parent's (kernels per frame of
+    the tracking step as a share of the parent's)."""
     import tempfile
 
     phase_device()
@@ -3167,6 +3362,21 @@ def compare_parent(parent):
         print(f"compare parent, pose solve {shape}: own device us parent {row['parent'][0]:.1f} / "
               f"{row['parent'][1]:.1f}, this {row['this'][0]:.1f} / {row['this'][1]:.1f} "
               f"({row['cluster_ctas']} CTAs a solve)")
+    summary["front_end_device_us"] = {}
+    for shape in rows[0]["front_end"]:
+        hashes = [r["front_end"][shape]["hash"] for r in rows]
+        check(len(set(hashes)) == 1, f"compare parent: {shape} outputs differ between the trees: "
+                                     f"parent {hashes[0][:16]}, this {hashes[1][:16]}")
+        us = [r["front_end"][shape]["device_us"] for r in rows]
+        summary["front_end_device_us"][shape] = {"parent": [us[0], us[3]], "this": [us[1], us[2]], "hash": hashes[0]}
+        print(f"compare parent, {shape}: same outputs (sha256 {hashes[0][:16]}); own device us parent {us[0]:.2f} / "
+              f"{us[3]:.2f}, this {us[1]:.2f} / {us[2]:.2f}")
+    for cell in ("points", "lines"):
+        ates, kfs = [r[cell]["ate_m"] for r in rows], [r[cell]["keyframes"] for r in rows]
+        summary[cell]["ate_m"] = {"parent": [ates[0], ates[3]], "this": [ates[1], ates[2]]}
+        summary[cell]["keyframes"] = {"parent": [kfs[0], kfs[3]], "this": [kfs[1], kfs[2]]}
+        print(f"compare parent, {cell} slice: ATE m parent {ates[0]!r} / {ates[3]!r}, this {ates[1]!r} / {ates[2]!r}; "
+              f"keyframes parent {kfs[0]} / {kfs[3]}, this {kfs[1]} / {kfs[2]}")
     print(json.dumps({"compare_parent": summary}))
 
 
@@ -3798,6 +4008,9 @@ if __name__ == "__main__":
         endurance_long()
     elif sys.argv[1:2] == ["--compare-parent"] and len(sys.argv) == 3:
         compare_parent(sys.argv[2])
+    elif sys.argv[1:] == ["--front-end-variants"]:
+        sys.path.insert(0, ROOT)
+        front_end_variants()
     elif sys.argv[1:2] == ["--tree-probe"] and len(sys.argv) == 4:
         tree_probe(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--schedule-probe"] and len(sys.argv) == 5:

@@ -1,6 +1,6 @@
 // Fused ORB describe for Hopper (sm_90a): clamped 32x32 tile -> sub-pixel
 // shift + Gaussian blur -> intensity-centroid angle -> rotated BRIEF-256,
-// one block per keypoint, the tile never leaving shared memory.
+// the tile never leaving shared memory.
 //
 // Replaces, together with stereo_sad.cu, the TPU kernel
 // orb_line_slam_tpu/ops/pallas_patches.py::extract_patch_tiles (body
@@ -8,7 +8,7 @@
 // wrote one 4 KB tile per keypoint to device memory because Mosaic could
 // not gather inside the consumers; plain tensor code then read the tiles
 // back many times (six batched 32x32 products, two int64 copies, three
-// moment sums, a 512-sample gather).  Here a block cuts the tile exactly
+// moment sums, a 512-sample gather).  Here a warp cuts the tile exactly
 // as patch_tiles.cu addresses it (x0 = clip(x - 15, 0, W - 32),
 // y0 = clip(y - 15, 0, H - 32)) and computes what the plain composition
 // patch tiles -> shift_blur_tiles -> ic_angle_from_tiles ->
@@ -22,89 +22,215 @@
 //   bit k = q[p2_k(bin)] > q[p1_k(bin)], packed LSB first.
 //
 // Am, A0, Ap are the three static matrices of the plain version (the
-// row-normalised zero-padded 7-tap Gaussian composed with the edge-clamped
-// one-pixel shifts); row i is nonzero only in columns i-4..i+4, so they
-// arrive as bands, row by row: [32][28] floats, the 27 coefficients of
-// row i (matrix-major, offsets -4..+4) and one of padding.  Each product
-// is a float32 dot product taken with fused multiply-adds in ascending
-// column order; the weighted sums round every product and sum separately,
-// as three tensor operations do.  Everything after the blurred tile is
-// integer arithmetic or a single correctly rounded float operation, so
-// equal blurred tiles give equal angles and descriptors.  (On an H100
-// with CUDA 12.8 that order reproduces the library's batched products bit
-// for bit; the library promises no order, so the kernel is held to the
-// plain version by a tolerance.)
+// row-normalised zero-padded 7-tap Gaussian B composed with the
+// edge-clamped one-pixel shifts: Am = B S-, A0 = B, Ap = B S+).  Each
+// product is a float32 dot product taken with fused multiply-adds in
+// ascending column order, over the taps of the row that lie in the tile;
+// the weighted sums round every product and sum separately, as three
+// tensor operations do.  Everything after the blurred tile is integer
+// arithmetic or a single correctly rounded float operation (the angle's
+// sqrt, division and atan2f on one lane), so equal blurred tiles give
+// equal angles and descriptors.  (On an H100 with CUDA 12.8 that order
+// reproduces the library's batched products bit for bit; the library
+// promises no order, so the kernel is held to the plain version by a
+// tolerance, and to its own earlier design, and a numpy emulation of it,
+// bit for bit.)
 //
-// What bounds it: bytes, narrowly.  The function needs the atlas pixels
-// under some tile once and 36 bytes written per keypoint; its arithmetic
-// could be one combined 9-tap band per axis (~20,000 multiply-adds per
-// keypoint), which the card's float32 rate does in less time than the
-// bytes take.  The kernel does ~2.4 times that arithmetic, because it keeps
-// the plain version's three products per axis and their separate roundings
-// so as to agree with it bit for bit, and runs well above the bound.  What the
-// design does about it: the tile, the row-blurred tile (odd pitch, so
-// that the column pass reads it transposed without bank conflicts) and
-// the quantised tile stay in shared memory (~18 KB a block).  Instruction
-// issue and shared-memory loads are the limit, not HBM: a row of 32
-// outputs needs 9 tile loads, 27 coefficients and 27 multiply-adds.  So
-// the coefficients of a row are fetched as seven 16-byte broadcast loads
-// into registers, a warp takes two adjacent rows at a time (ten tile loads
-// for both), and the tile carries four rows or columns of zeros on each
-// side, so that no tap needs a range check (their coefficients are zero
-// too, and a multiply-add of 0 x 0 leaves the sum as it is).  Moments by
-// warp shuffles; descriptor bits by __ballot_sync, one 32-bit word per
-// warp pass.
+// Row reuse.  In the interior B is Toeplitz, so Am's row i is A0's row
+// i - 1 for i = 4..28 and Ap's row i is A0's row i + 1 for i = 3..27,
+// element for element (kAmReuse*, kApReuse* below; the test
+// test_shift_blur_row_reuse_identity derives both ranges from the
+// matrices and holds these constants to them).  The same nonzero
+// coefficients then meet the same tile values in the same ascending
+// order, so (Am T)[i] = (A0 T)[i - 1] to the bit; a zero coefficient adds
+// an exact zero, so taps that are zero in every row of a matrix are
+// dropped (A0 keeps offsets -3..+3, Am -4..+2, Ap -2..+4).  Per axis a
+// lane computes 32 A0 products and the 14 edge products of Am (rows 0-3,
+// 29-31) and Ap (rows 0-2, 28-31) from their own bands: 46 products of 7
+// taps, where the earlier design took 96 of 9.  For the same reason A0's
+// rows 3..28 hold one band, bit for bit (kA0Interior*; the same test), so
+// a lane keeps those seven coefficients in registers and loads only the
+// 20 edge rows' from shared memory, one broadcast load a tap in the tile.
+//
+// What bounds it: bytes, narrowly, on paper.  The function needs the atlas
+// pixels under some tile once and 36 bytes written per keypoint; the
+// float32 work of one combined band per axis takes the card less time
+// than those bytes.  The kernel keeps the plain version's three products
+// per axis and their separate roundings so as to agree with it bit for
+// bit, so in practice instruction issue and shared-memory traffic bound
+// it, not HBM.  What the design does about it:
+//   - persistent CTAs: the grid is the SM count times the CTAs an SM
+//     holds, asked of the occupancy API at the first launch on a device
+//     (one CTA of kWarps warps at the default 16).  A CTA loads the 21
+//     band rows it uses and the 30 x 512 int16 rotated-pattern table into
+//     shared memory once, then its warps walk the keypoints with a stride;
+//   - one keypoint per warp (kGroup = 1; a group of two warps splitting
+//     the rows and columns builds with -DORB_DESCRIBE_GROUP=2 and was
+//     measured, PERF.md), with __syncwarp (or the group's named barrier)
+//     and no __syncthreads per keypoint; moments, angle and bin stay with
+//     the keypoint's warp;
+//   - the row reuse above, with a lane's tile column (row pass) or row of
+//     the row-blurred tile (column pass) in registers;
+//   - prefetch: while a warp computes keypoint k it copies the tile of its
+//     next keypoint into a second stage with 4-byte cp.async copies,
+//     committed as one group and awaited one keypoint later.  TMA does not
+//     serve here: a tensor map needs a global row stride that is a
+//     multiple of 16 bytes (the point cell's atlas row is 1241 x 4 = 4,964
+//     bytes) and a tile's x0 is arbitrary;
+//   - the row-blurred tile has an odd pitch (33), so that the row pass
+//     (lane = column) writes it and the column pass (lane = row) reads it
+//     without bank conflicts; the column pass quantises it in place (each
+//     lane overwrites the row it has already read into registers), keeping
+//     q as int32 bits, since a float32 atlas has no range the kernel may
+//     assume.
 
+#ifndef ORB_DESCRIBE_HOST
 #include <cuda_runtime.h>
+
+extern __shared__ __align__(16) unsigned char orb_describe_smem[];
+#endif
+
+#ifndef ORB_DESCRIBE_GROUP
+#define ORB_DESCRIBE_GROUP 1
+#endif
+#ifndef ORB_DESCRIBE_WARPS
+#define ORB_DESCRIBE_WARPS 16
+#endif
+#ifndef ORB_DESCRIBE_PASS_LOOP
+#define ORB_DESCRIBE_PASS_LOOP 0
+#endif
 
 namespace {
 
 constexpr int kTile = 32;
-constexpr int kPitch = 33;
-constexpr int kTaps = 9;            // band offsets -4..+4
-constexpr int kPad = 4;             // zero rows / columns around a tile, so that no tap is out of range
-constexpr int kPitchRows = kTile + 2 * kPad + 1;   // 41: odd, so a transposed read has no bank conflict
-constexpr int kRowQuads = 7;        // 3 * 9 coefficients of a row + 1 pad, as float4
+constexpr int kPitch = 33;                  // odd: read along a row or down a column without bank conflicts
+constexpr int kBandRow = 28;                // band_rows(): [Am taps 0..8 | A0 taps 0..8 | Ap taps 0..8 | pad]
+constexpr int kBandTaps = 9;                // offsets -4..+4 around the diagonal
+constexpr int kUsed = 7;                    // taps that are nonzero in some row, per matrix
+constexpr int kAmTap0 = 0;                  // Am: offsets -4..+2
+constexpr int kA0Tap0 = 1;                  // A0: offsets -3..+3
+constexpr int kApTap0 = 2;                  // Ap: offsets -2..+4
+constexpr int kAmReuseFirst = 4;            // Am row i == A0 row i - 1 for i in [4, 28]
+constexpr int kAmReuseLast = 28;
+constexpr int kApReuseFirst = 3;            // Ap row i == A0 row i + 1 for i in [3, 27]
+constexpr int kApReuseLast = 27;
+constexpr int kA0InteriorFirst = 3;         // A0's rows 3..28 hold one band, bit for bit
+constexpr int kA0InteriorLast = 28;
+constexpr int kA0Edges = kA0InteriorFirst + (kTile - 1 - kA0InteriorLast);   // 6 rows of A0 with a band of their own
+constexpr int kAmEdges = kAmReuseFirst + (kTile - 1 - kAmReuseLast);         // 7 of Am
+constexpr int kApEdges = kApReuseFirst + (kTile - 1 - kApReuseLast);         // 7 of Ap
+// The coefficient table: A0's edge rows, its interior band, Am's edge rows,
+// Ap's; each row its used taps and one float of padding.
+constexpr int kCoefRows = kA0Edges + 1 + kAmEdges + kApEdges;                // 21
+constexpr int kCoefPitch = 8;
 constexpr int kBins = 30;
-constexpr int kThreads = 128;      // four warps per keypoint: 32, 64 and 256 threads measured slower
-constexpr int kWarps = kThreads / 32;
+constexpr int kPattern = 512;               // 256 test-point pairs: p1 at [0, 256), p2 at [256, 512)
+constexpr int kWords = 8;                   // 256 bits
 constexpr int kHalfPatch = 15;
 constexpr float kFixedScale = 16.0f;
 constexpr float kIcMinOffsetPx = 0.5f;
+constexpr int kGroup = ORB_DESCRIBE_GROUP;  // warps per keypoint
+constexpr int kWarps = ORB_DESCRIBE_WARPS;  // warps per CTA
+constexpr int kThreads = 32 * kWarps;
+constexpr int kGroups = kWarps / kGroup;    // keypoints in flight per CTA
+constexpr int kSpan = kTile / kGroup;       // rows (row pass) or columns (column pass) of a warp
+static_assert(kGroup == 1 || kGroup == 2, "a keypoint takes one warp or two");
+static_assert(kWarps % kGroup == 0 && (kGroup == 1 || kGroups <= 15), "named barriers 1..15, one per group");
+static_assert(!ORB_DESCRIBE_PASS_LOOP || kGroup == 1, "the pass loop takes one warp a keypoint");
+
+// Shared memory: the CTA's two tables, then per group two tile stages, the
+// row-blurred (then quantised) tile and, for a group of warps, its
+// partial moments and bin.
+constexpr int kCoefBytes = kCoefRows * kCoefPitch * 4;
+constexpr int kRotBytes = kBins * kPattern * 2;
+constexpr int kStage = kTile * kTile;
+constexpr int kScratch = kGroup > 1 ? 16 : 0;
+constexpr int kGroupFloats = 2 * kStage + kTile * kPitch + kScratch;
+constexpr int kSharedBytes = kCoefBytes + kRotBytes + kGroups * kGroupFloats * 4;
+static_assert(kSharedBytes <= 232448, "227 KB a block on Hopper");
+
+// Edge row i of a matrix whose rows [first, last] are taken elsewhere:
+// its index among the edge rows, and back.
+__host__ __device__ constexpr int edge_index(int i, int first, int last) { return i < first ? i : first + i - last - 1; }
+__host__ __device__ constexpr int edge_row(int e, int first, int last) { return e < first ? e : last + 1 + e - first; }
+// Table rows of A0's edge row i, of Am's and of Ap's.
+__host__ __device__ constexpr int a0_slot(int i) { return edge_index(i, kA0InteriorFirst, kA0InteriorLast); }
+__host__ __device__ constexpr int am_slot(int i) { return kA0Edges + 1 + edge_index(i, kAmReuseFirst, kAmReuseLast); }
+__host__ __device__ constexpr int ap_slot(int i) {
+  return kA0Edges + 1 + kAmEdges + edge_index(i, kApReuseFirst, kApReuseLast);
+}
+
+#ifndef ORB_DESCRIBE_HOST
+__device__ __forceinline__ unsigned char* shared_base() { return orb_describe_smem; }
+
+// One 4-byte asynchronous copy from device to shared memory.
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+// Closes the group of copies issued since the last call and waits for all
+// groups but that one: the previous keypoint's prefetch has landed.
+__device__ __forceinline__ void commit_and_wait_previous() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// The keypoint's warps: __syncwarp for one, the group's named barrier for two.
+__device__ __forceinline__ void group_sync(int group) {
+  if (kGroup == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "n"(32 * kGroup) : "memory");
+  }
+}
+#endif
 
 // wm * a + w0 * b + wp * c as three tensor operations round it.
-__device__ __forceinline__ float weighted3(float wm, float a, float w0, float b,
-                                           float wp, float c) {
+__device__ __forceinline__ float weighted3(float wm, float a, float w0, float b, float wp, float c) {
   return __fadd_rn(__fadd_rn(__fmul_rn(wm, a), __fmul_rn(w0, b)), __fmul_rn(wp, c));
 }
 
-// The 27 band coefficients of row i: cf[m * 9 + o] = A_m[i][i - 4 + o].
-__device__ __forceinline__ void load_row(const float4* s_band, int i, float (&cf)[4 * kRowQuads]) {
+// Row i of a product: sum over the seven used taps, starting at band offset
+// tap0, of coef[o] x line[j] (j = i - 4 + tap0 + o), in ascending j with
+// fused multiply-adds; taps outside the tile have coefficient 0 and are
+// skipped (they add an exact 0).  coef: the interior band in registers, or
+// an edge row of the shared table (one broadcast load a used tap).
+template <class Coef>
+__device__ __forceinline__ float band_dot(const Coef& coef, int tap0, int i, const float (&line)[kTile]) {
+  float acc = 0.0f;
 #pragma unroll
-  for (int q = 0; q < kRowQuads; ++q) {
-    const float4 v = s_band[i * kRowQuads + q];
-    cf[4 * q] = v.x;
-    cf[4 * q + 1] = v.y;
-    cf[4 * q + 2] = v.z;
-    cf[4 * q + 3] = v.w;
+  for (int o = 0; o < kUsed; ++o) {
+    const int j = i - 4 + tap0 + o;
+    if (j >= 0 && j < kTile) acc = fmaf(coef[o], line[j], acc);
   }
+  return acc;
 }
 
-// One output of a blur pass: the three banded dot products of row i with
-// the taps t[0..8] (columns i-4..i+4, zero where out of range, as their
-// coefficients are), in ascending order, and their weighted sum.
-__device__ __forceinline__ float blur3(const float4* s_band, int i, const float* t,
-                                       float wm, float w0, float wp) {
-  float cf[4 * kRowQuads];
-  load_row(s_band, i, cf);
-  float am = 0.0f, a0 = 0.0f, ap = 0.0f;
+// One blur pass over the outputs [I0, I0 + kSpan) of this lane's line:
+// out[i] = wm (Am line)[i] + w0 (A0 line)[i] + wp (Ap line)[i], Am's and
+// Ap's interior rows read off A0's products.  sink(i, out[i]) takes each.
+template <int I0, class Sink>
+__device__ __forceinline__ void blur_line(const float* s_coef, const float (&a0)[kUsed], const float (&line)[kTile],
+                                          float wm, float w0, float wp, Sink sink) {
+  constexpr int lo = I0 > 0 ? I0 - 1 : 0;
+  constexpr int hi = I0 + kSpan < kTile ? I0 + kSpan + 1 : kTile;
+  float p0[kTile];
 #pragma unroll
-  for (int o = 0; o < kTaps; ++o) {
-    am = fmaf(cf[o], t[o], am);
-    a0 = fmaf(cf[kTaps + o], t[o], a0);
-    ap = fmaf(cf[2 * kTaps + o], t[o], ap);
+  for (int i = lo; i < hi; ++i) {
+    p0[i] = i >= kA0InteriorFirst && i <= kA0InteriorLast ? band_dot(a0, kA0Tap0, i, line)
+                                                          : band_dot(s_coef + kCoefPitch * a0_slot(i), kA0Tap0, i, line);
   }
-  return weighted3(wm, am, w0, a0, wp, ap);
+#pragma unroll
+  for (int i = I0; i < I0 + kSpan; ++i) {
+    const float am = i >= kAmReuseFirst && i <= kAmReuseLast
+                         ? p0[i > 0 ? i - 1 : 0]
+                         : band_dot(s_coef + kCoefPitch * am_slot(i), kAmTap0, i, line);
+    const float ap = i >= kApReuseFirst && i <= kApReuseLast
+                         ? p0[i < kTile - 1 ? i + 1 : i]
+                         : band_dot(s_coef + kCoefPitch * ap_slot(i), kApTap0, i, line);
+    sink(i, weighted3(wm, am, w0, p0[i], wp, ap));
+  }
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -113,119 +239,240 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-__global__ void orb_describe_kernel(const float* __restrict__ atlas, int h, int w,
-                                    const int* __restrict__ xy,
-                                    const float* __restrict__ delta, int n_per_image,
-                                    const float4* __restrict__ band,
-                                    const short* __restrict__ rot, float inv_bin,
-                                    float* __restrict__ angle,
-                                    unsigned* __restrict__ desc) {
-  __shared__ float4 s_band[kTile * kRowQuads];
-  __shared__ float s_tile[(kTile + 2 * kPad) * kTile];   // tile rows -4..35
-  __shared__ float s_rows[kTile * kPitchRows];           // row-blurred tile, columns -4..35
-  __shared__ int s_fixed[kTile * kPitch];
-  __shared__ int s_part[kWarps * 3];
-  __shared__ int s_bin;
+// Rows: lane = tile column c; ty[i][c] for this warp's rows i.
+template <int I0>
+__device__ __forceinline__ void row_pass(const float* s_coef, const float (&a0)[kUsed], const float* tile,
+                                         float* rows, int lane, float wm, float w0, float wp) {
+  constexpr int lo = I0 > 4 ? I0 - 4 : 0;
+  constexpr int hi = I0 + kSpan + 4 < kTile ? I0 + kSpan + 4 : kTile;
+  float line[kTile];
+#pragma unroll
+  for (int r = lo; r < hi; ++r) line[r] = tile[r * kTile + lane];
+  blur_line<I0>(s_coef, a0, line, wm, w0, wp, [&](int i, float v) { rows[i * kPitch + lane] = v; });
+}
 
-  const int k = blockIdx.x;
+// Columns: lane = row r; tb[r][i] for this warp's columns i, quantised in
+// place, and the disk's moments of those outputs: (sum q u, sum q) with
+// u = i - 15 (m01 is v times the sum, v = r - 15).
+template <int I0>
+__device__ __forceinline__ void column_pass(const float* s_coef, const float (&a0)[kUsed], float* rows, int lane,
+                                            float wm, float w0, float wp, int group, int& m10, int& m00) {
+  constexpr int lo = I0 > 4 ? I0 - 4 : 0;
+  constexpr int hi = I0 + kSpan + 4 < kTile ? I0 + kSpan + 4 : kTile;
+  float line[kTile];
+  float* mine = rows + lane * kPitch;
+#pragma unroll
+  for (int j = lo; j < hi; ++j) line[j] = mine[j];
+  if (kGroup > 1) group_sync(group);        // the other warp has read what this one overwrites
+  const int v = lane - kHalfPatch;
+  blur_line<I0>(s_coef, a0, line, wm, w0, wp, [&](int i, float x) {
+    const int q = __float2int_rn(__fmul_rn(x, kFixedScale));
+    mine[i] = __int_as_float(q);
+    const int u = i - kHalfPatch;
+    if (i <= 2 * kHalfPatch && lane <= 2 * kHalfPatch && u * u + v * v <= kHalfPatch * kHalfPatch) {
+      m10 += q * u;
+      m00 += q;
+    }
+  });
+}
+
+// Both passes through one copy of the blur's code (half the loop body's
+// instructions): pass 0 the rows (lane = tile column), pass 1 the columns
+// (lane = row of the row-blurred tile, quantised in place, and its
+// moments as column_pass takes them).
+__device__ __forceinline__ void both_passes(const float* s_coef, const float (&a0)[kUsed], const float* tile,
+                                            float* rows, int lane, float wmx, float w0x, float wpx, float wmy,
+                                            float w0y, float wpy, int& m10, int& m00) {
+  const int v = lane - kHalfPatch;
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    float line[kTile];
+    if (pass == 0) {
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) line[r] = tile[r * kTile + lane];
+    } else {
+      __syncwarp();
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) line[j] = rows[lane * kPitch + j];
+    }
+    float* out = pass ? rows + lane * kPitch : rows + lane;
+    const int step = pass ? 1 : kPitch;
+    blur_line<0>(s_coef, a0, line, pass ? wmx : wmy, pass ? w0x : w0y, pass ? wpx : wpy, [&](int i, float x) {
+      if (pass) {
+        const int q = __float2int_rn(__fmul_rn(x, kFixedScale));
+        x = __int_as_float(q);
+        const int u = i - kHalfPatch;
+        if (i <= 2 * kHalfPatch && lane <= 2 * kHalfPatch && u * u + v * v <= kHalfPatch * kHalfPatch) {
+          m10 += q * u;
+          m00 += q;
+        }
+      }
+      out[i * step] = x;
+    });
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) orb_describe_kernel(
+    const float* __restrict__ atlas, int h, int w, const int* __restrict__ xy, const float* __restrict__ delta,
+    int n_per_image, int total, const float* __restrict__ band, const short* __restrict__ rot, float inv_bin,
+    float* __restrict__ angle, unsigned* __restrict__ desc) {
+  unsigned char* smem = shared_base();
+  float* s_coef = reinterpret_cast<float*>(smem);
+  short* s_rot = reinterpret_cast<short*>(smem + kCoefBytes);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float* img = atlas + static_cast<long long>(k / n_per_image) * h * w;
-  const int x0 = min(max(xy[2 * k] - kHalfPatch, 0), w - kTile);
-  const int y0 = min(max(xy[2 * k + 1] - kHalfPatch, 0), h - kTile);
+  const int group = warp / kGroup;
+  const int gw = warp % kGroup;              // this warp's place in its group
+  float* g_base = reinterpret_cast<float*>(smem + kCoefBytes + kRotBytes) + group * kGroupFloats;
+  float* rows = g_base + 2 * kStage;
+  int* scratch = reinterpret_cast<int*>(rows + kTile * kPitch);
+  const long long image = static_cast<long long>(h) * w;
+  // Keypoint k goes to CTA k mod grid, so that a launch with fewer
+  // keypoints than warps spreads them over every SM.
+  const int stride = gridDim.x * kGroups;
 
-  for (int i = threadIdx.x; i < kTile * kRowQuads; i += kThreads) s_band[i] = band[i];
-  for (int r = warp; r < kTile; r += kWarps) {
-    s_tile[(kPad + r) * kTile + lane] = img[static_cast<long long>(y0 + r) * w + x0 + lane];
-  }
-  for (int i = threadIdx.x; i < 2 * kPad * kTile; i += kThreads) {
-    const int r = i / kTile;                               // rows -4..-1 and 32..35 of the tile
-    s_tile[(r < kPad ? r : r + kTile) * kTile + i % kTile] = 0.0f;
-    const int q = i % (2 * kPad);                          // columns -4..-1 and 32..35 of its rows
-    s_rows[(i / (2 * kPad)) * kPitchRows + (q < kPad ? q : q + kTile)] = 0.0f;
-  }
-  const float dx = delta[2 * k];
-  const float dy = delta[2 * k + 1];
-  const float wmx = fmaxf(-dx, 0.0f), w0x = 1.0f - fabsf(dx), wpx = fmaxf(dx, 0.0f);
-  const float wmy = fmaxf(-dy, 0.0f), w0y = 1.0f - fabsf(dy), wpy = fmaxf(dy, 0.0f);
-  __syncthreads();
+  // This warp's share of a keypoint's tile (rows [gw * kSpan, + kSpan),
+  // lane = column) into a stage.
+  auto prefetch = [&](int k, int x, int y, float* stage) {
+    const int x0 = min(max(x - kHalfPatch, 0), w - kTile);
+    const int y0 = min(max(y - kHalfPatch, 0), h - kTile);
+    const float* src = atlas + (k / n_per_image) * image + static_cast<long long>(y0) * w + x0 + lane;
+#pragma unroll 4
+    for (int r = gw * kSpan; r < (gw + 1) * kSpan; ++r) copy_async(stage + r * kTile + lane, src + static_cast<long long>(r) * w);
+  };
 
-  // Rows: ty[i][c] = sum_j A[i][j] T[j][c]; a warp takes rows i0 and
-  // i0 + 1, which share nine of their ten tile rows; lane = c.
-  for (int i0 = 2 * warp; i0 < kTile; i0 += 2 * kWarps) {
-    float t[kTaps + 1];
-#pragma unroll
-    for (int q = 0; q <= kTaps; ++q) t[q] = s_tile[(i0 + q) * kTile + lane];   // tile row i0 - 4 + q
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      s_rows[(i0 + d) * kPitchRows + kPad + lane] = blur3(s_band, i0 + d, t + d, wmy, w0y, wpy);
+  int k = group * gridDim.x + blockIdx.x;
+  if (k < total) prefetch(k, xy[2 * k], xy[2 * k + 1], g_base);
+  commit_and_wait_previous();                // the first tile is a group of its own
+  // The next keypoint's coordinates and this one's offsets, a keypoint ahead.
+  int xn = 0, yn = 0;
+  float dx = 0.0f, dy = 0.0f;
+  if (k < total) {
+    dx = delta[2 * k];
+    dy = delta[2 * k + 1];
+  }
+  if (k + stride < total) {
+    xn = xy[2 * (k + stride)];
+    yn = xy[2 * (k + stride) + 1];
+  }
+
+  // The CTA's tables, once: the used taps of A0's edge rows and interior
+  // band and of Am's and Ap's edge rows, and the rotated pattern.
+  for (int t = threadIdx.x; t < kCoefRows * kCoefPitch; t += kThreads) {
+    const int row = t / kCoefPitch, o = t % kCoefPitch;
+    int i, first;
+    if (row <= kA0Edges) {
+      i = row == kA0Edges ? kA0InteriorFirst : edge_row(row, kA0InteriorFirst, kA0InteriorLast);
+      first = kBandTaps + kA0Tap0;
+    } else if (row <= kA0Edges + kAmEdges) {
+      i = edge_row(row - kA0Edges - 1, kAmReuseFirst, kAmReuseLast);
+      first = kAmTap0;
+    } else {
+      i = edge_row(row - kA0Edges - 1 - kAmEdges, kApReuseFirst, kApReuseLast);
+      first = 2 * kBandTaps + kApTap0;
     }
+    s_coef[t] = o < kUsed ? band[i * kBandRow + first + o] : 0.0f;
+  }
+  for (int t = threadIdx.x; t < kBins * kPattern / 2; t += kThreads) {
+    reinterpret_cast<int*>(s_rot)[t] = reinterpret_cast<const int*>(rot)[t];
   }
   __syncthreads();
+  float a0[kUsed];                           // A0's interior band, for every keypoint
+#pragma unroll
+  for (int o = 0; o < kUsed; ++o) a0[o] = s_coef[kA0Edges * kCoefPitch + o];
 
-  // Columns: tb[r][i] = sum_j ty[r][j] A[i][j]; a warp takes columns i0
-  // and i0 + 1, lane = r.  Quantise and take the moments of the disk on
-  // the way.
-  int m10 = 0, m01 = 0, m00 = 0;
-  for (int i0 = 2 * warp; i0 < kTile; i0 += 2 * kWarps) {
-    float t[kTaps + 1];
-#pragma unroll
-    for (int q = 0; q <= kTaps; ++q) t[q] = s_rows[lane * kPitchRows + i0 + q];   // column i0 - 4 + q
-#pragma unroll
-    for (int d = 0; d < 2; ++d) {
-      const int i = i0 + d;
-      const float v = blur3(s_band, i, t + d, wmx, w0x, wpx);
-      const int q = __float2int_rn(__fmul_rn(v, kFixedScale));
-      s_fixed[lane * kPitch + i] = q;
-      const int u = i - kHalfPatch;
-      const int vv = lane - kHalfPatch;
-      if (i < 2 * kHalfPatch + 1 && lane < 2 * kHalfPatch + 1 &&
-          u * u + vv * vv <= kHalfPatch * kHalfPatch) {
-        m10 += q * u;
-        m01 += q * vv;
-        m00 += q;
+  for (int it = 0; k < total; ++it, k += stride) {
+    float* tile = g_base + (it & 1) * kStage;
+    const int kn = k + stride;
+    if (kn < total) prefetch(kn, xn, yn, g_base + ((it + 1) & 1) * kStage);
+    float dxn = 0.0f, dyn = 0.0f;
+    if (kn < total) {
+      dxn = delta[2 * kn];
+      dyn = delta[2 * kn + 1];
+    }
+    if (kn + stride < total) {
+      xn = xy[2 * (kn + stride)];
+      yn = xy[2 * (kn + stride) + 1];
+    }
+    commit_and_wait_previous();
+    if (kGroup > 1) group_sync(group);       // the other warp's rows of the tile have landed
+
+    const float wmx = fmaxf(-dx, 0.0f), w0x = 1.0f - fabsf(dx), wpx = fmaxf(dx, 0.0f);
+    const float wmy = fmaxf(-dy, 0.0f), w0y = 1.0f - fabsf(dy), wpy = fmaxf(dy, 0.0f);
+    int m10 = 0, m00 = 0;
+#if ORB_DESCRIBE_PASS_LOOP
+    both_passes(s_coef, a0, tile, rows, lane, wmx, w0x, wpx, wmy, w0y, wpy, m10, m00);
+#else
+    if (gw == 0) {
+      row_pass<0>(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
+    } else {
+      row_pass<kSpan * (kGroup - 1)>(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
+    }
+    group_sync(group);
+    if (gw == 0) {
+      column_pass<0>(s_coef, a0, rows, lane, wmx, w0x, wpx, group, m10, m00);
+    } else {
+      column_pass<kSpan * (kGroup - 1)>(s_coef, a0, rows, lane, wmx, w0x, wpx, group, m10, m00);
+    }
+#endif
+    int m01 = warp_sum((lane - kHalfPatch) * m00);
+    m10 = warp_sum(m10);
+    m00 = warp_sum(m00);
+    if (kGroup > 1 && lane == 0) {
+      scratch[3 * gw] = m10;
+      scratch[3 * gw + 1] = m01;
+      scratch[3 * gw + 2] = m00;
+    }
+    group_sync(group);                        // q complete (and the partial moments)
+
+    int bin = 0;
+    if (gw == 0) {
+      if (kGroup > 1) {
+        m10 = m01 = m00 = 0;
+        for (int g = 0; g < kGroup; ++g) {
+          m10 += scratch[3 * g];
+          m01 += scratch[3 * g + 1];
+          m00 += scratch[3 * g + 2];
+        }
       }
+      if (lane == 0) {
+        const float f10 = __int2float_rn(m10);
+        const float f01 = __int2float_rn(m01);
+        const float f00 = __int2float_rn(m00);
+        const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(f10, f10), __fmul_rn(f01, f01)));
+        const float offset = __fdiv_rn(norm, fmaxf(f00, 1e-6f));
+        const float a = offset >= kIcMinOffsetPx ? atan2f(f01, f10) : 0.0f;
+        angle[k] = a;
+        const int b = __float2int_rn(__fmul_rn(a, inv_bin));
+        bin = ((b % kBins) + kBins) % kBins;
+      }
+      bin = __shfl_sync(0xffffffffu, bin, 0);
     }
-  }
-  m10 = warp_sum(m10);
-  m01 = warp_sum(m01);
-  m00 = warp_sum(m00);
-  if (lane == 0) {
-    s_part[warp * 3] = m10;
-    s_part[warp * 3 + 1] = m01;
-    s_part[warp * 3 + 2] = m00;
-  }
-  __syncthreads();
-
-  if (threadIdx.x == 0) {
-    int s10 = 0, s01 = 0, s00 = 0;
-    for (int i = 0; i < kWarps; ++i) {
-      s10 += s_part[i * 3];
-      s01 += s_part[i * 3 + 1];
-      s00 += s_part[i * 3 + 2];
+    if (kGroup > 1) {
+      if (gw == 0 && lane == 0) scratch[3 * kGroup] = bin;
+      group_sync(group);
+      bin = scratch[3 * kGroup];
     }
-    const float f10 = __int2float_rn(s10);
-    const float f01 = __int2float_rn(s01);
-    const float f00 = __int2float_rn(s00);
-    const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(f10, f10), __fmul_rn(f01, f01)));
-    const float offset = __fdiv_rn(norm, fmaxf(f00, 1e-6f));
-    const float a = offset >= kIcMinOffsetPx ? atan2f(f01, f10) : 0.0f;
-    angle[k] = a;
-    const int b = __float2int_rn(__fmul_rn(a, inv_bin));
-    s_bin = ((b % kBins) + kBins) % kBins;
-  }
-  __syncthreads();
 
-  // BRIEF: bit t = q[p2_t] > q[p1_t]; a warp pass gives one 32-bit word,
-  // whose little-endian bytes are the LSB-first packing.
-  const short* pattern = rot + s_bin * 512;
-  for (int g = warp; g < 8; g += kWarps) {
-    const int i1 = pattern[g * 32 + lane];
-    const int i2 = pattern[256 + g * 32 + lane];
-    const int v1 = s_fixed[(i1 >> 5) * kPitch + (i1 & 31)];
-    const int v2 = s_fixed[(i2 >> 5) * kPitch + (i2 & 31)];
-    const unsigned word = __ballot_sync(0xffffffffu, v2 > v1);
-    if (lane == 0) desc[static_cast<long long>(k) * 8 + g] = word;
+    // BRIEF: bit t = q[p2_t] > q[p1_t]; a ballot gives one 32-bit word,
+    // whose little-endian bytes are the LSB-first packing.  Lane g of the
+    // warp keeps the warp's word g; the words go out as one row.
+    const short* pattern = s_rot + bin * kPattern;
+    unsigned word = 0;
+#pragma unroll
+    for (int g = 0; g < kWords / kGroup; ++g) {
+      const int t = (gw * (kWords / kGroup) + g) * 32 + lane;
+      const int i1 = pattern[t];
+      const int i2 = pattern[kPattern / 2 + t];
+      const int v1 = __float_as_int(rows[(i1 >> 5) * kPitch + (i1 & 31)]);
+      const int v2 = __float_as_int(rows[(i2 >> 5) * kPitch + (i2 & 31)]);
+      const unsigned bits = __ballot_sync(0xffffffffu, v2 > v1);
+      if (lane == g) word = bits;
+    }
+    if (lane < kWords / kGroup) desc[static_cast<long long>(k) * kWords + gw * (kWords / kGroup) + lane] = word;
+    group_sync(group);                        // q read: the next keypoint may overwrite it
+    dx = dxn;
+    dy = dyn;
   }
 }
 
@@ -233,19 +480,38 @@ __global__ void orb_describe_kernel(const float* __restrict__ atlas, int h, int 
 
 // atlas: float32 [b, h, w] contiguous; xy: int32 [b, n, 2] (x, y) atlas
 // keypoints; delta: float32 [b, n, 2] sub-pixel offsets; band: float32
-// [32, 28] band rows of the shift+blur matrices, 16-byte aligned; rot: int16 [30, 512] flat
-// tile indices of the rotated test points; inv_bin: 1 / (2 pi / 30);
-// angle: float32 [b * n]; desc: uint8 [b * n, 32].  Launches on `stream`;
-// returns cudaGetLastError().
-extern "C" int orb_describe_launch(const float* atlas, int b, int h, int w,
-                                   const int* xy, const float* delta, int n,
-                                   const float* band, const short* rot,
-                                   float inv_bin, float* angle, unsigned char* desc,
-                                   void* stream) {
-  if (b * n > 0) {
-    orb_describe_kernel<<<b * n, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        atlas, h, w, xy, delta, n, reinterpret_cast<const float4*>(band), rot, inv_bin, angle,
-        reinterpret_cast<unsigned*>(desc));
+// [32, 28] band rows of the shift+blur matrices (band_rows()); rot: int16
+// [30, 512] flat tile indices of the rotated test points, 4-byte aligned;
+// inv_bin: 1 / (2 pi / 30); angle: float32 [b * n]; desc: uint8 [b * n,
+// 32], 4-byte aligned.  Launches min(SMs x resident CTAs, b * n)
+// persistent CTAs on `stream` (the resident count from the occupancy API,
+// asked once per device); returns the first CUDA error, else
+// cudaGetLastError().
+extern "C" int orb_describe_launch(const float* atlas, int b, int h, int w, const int* xy, const float* delta,
+                                   int n, const float* band, const short* rot, float inv_bin, float* angle,
+                                   unsigned char* desc, void* stream) {
+  const int total = b * n;
+  if (total > 0) {
+    constexpr int kMaxDevices = 64;
+    static int resident[kMaxDevices];         // SMs x CTAs per SM, per device; 0 until asked
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+    if (resident[dev] == 0) {
+      err = cudaFuncSetAttribute(orb_describe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      int per_sm = 0, sms = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, orb_describe_kernel, kThreads, kSharedBytes);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+      resident[dev] = sms * per_sm;
+    }
+    const int grid = total < resident[dev] ? total : resident[dev];
+    orb_describe_kernel<<<grid, kThreads, kSharedBytes, static_cast<cudaStream_t>(stream)>>>(
+        atlas, h, w, xy, delta, n, total, band, rot, inv_bin, angle, reinterpret_cast<unsigned*>(desc));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,17 +24,38 @@
 //
 // Every product and difference is rounded on its own, as the plain
 // version's tensor operations round them; only the order of the 121-term
-// sum differs (a lane sums elements lane, lane+32, ... in ascending order,
-// then a butterfly of shuffles), which is why the result is held to the
-// plain version within 1e-5 relative + 1e-2.
+// sum differs from theirs: a lane sums its elements lane, lane + 32, ... in
+// ascending order, then lanes pair off by xor 16, 8, 4, 2, 1.  So the
+// result is held to the plain version within 1e-5 relative + 1e-2, and to
+// the earlier design of this kernel (one slide at a time, each with its
+// own butterfly) bit for bit.
 //
-// What bounds it: bytes and launch latency.  A keypoint needs 121 + 264
-// atlas pixels (1.5 KB, scattered over 23 rows) and writes 44 bytes.
-// What the design does about it: both windows live in shared memory
-// (1.4 KB a warp), a warp never waits for another (only __syncwarp), and
-// lanes 0..10 write the eleven sums as one 44-byte row.
+// What bounds it: bytes and latency.  A keypoint needs 121 + 264 atlas
+// pixels (1.5 KB, scattered over 23 rows) and writes 44 bytes; a point
+// cell's 2,000 keypoints are a single wave of warps, so its time is one
+// warp's chain of dependent steps plus the launch.  What the design does
+// about it:
+//   - every atlas load of a keypoint (its four left-window pixels per
+//     lane, the window's centre, and the nine pixels per lane of the
+//     12 x 22 raw right window under the blend's four taps) is issued
+//     before the first is used, right after the keypoint's coordinates;
+//   - the raw right window goes to shared memory once and the blend reads
+//     its four taps there (w00, w01, w10, w11, each product rounded, in
+//     that order), so no pixel is loaded from device memory four times;
+//   - the eleven slides' lane partials are independent chains, and they
+//     are reduced together: a reduce-scatter over the lanes (16 slots, 11
+//     used) halves the slots a lane holds at each of the xor distances 16,
+//     8, 4 and 2, then one xor-1 exchange; 16 shuffles where one butterfly
+//     per slide took 55 in one dependent line.  Each slot keeps its sum
+//     tree: the values that meet at each step are the same partial sums
+//     as in a butterfly, and float addition commutes, so the bits are the
+//     same;
+//   - lanes 0..10 write the eleven sums as one 44-byte row; a warp never
+//     waits for another (only __syncwarp).
 
+#ifndef STEREO_SAD_HOST
 #include <cuda_runtime.h>
+#endif
 
 namespace {
 
@@ -45,102 +66,150 @@ constexpr int kSlide = 5;                      // +-5 px
 constexpr int kWin = 2 * kSadW + 1;            // 11
 constexpr int kOffsets = 2 * kSlide + 1;       // 11
 constexpr int kStripW = kWin + 2 * kSlide;     // 21
+constexpr int kRawW = kStripW + 1;             // 22: the blend's right taps
+constexpr int kRawH = kWin + 1;                // 12: and its lower ones
 constexpr int kLeft = kWin * kWin;             // 121
 constexpr int kStrip = kWin * kStripW;         // 231
-constexpr int kPerLane = (kLeft + 31) / 32;    // 4
+constexpr int kRaw = kRawH * kRawW;            // 264
+constexpr int kLeftPerLane = (kLeft + 31) / 32;     // 4
+constexpr int kStripPerLane = (kStrip + 31) / 32;   // 8
+constexpr int kRawPerLane = (kRaw + 31) / 32;       // 9
+constexpr int kSlots = 16;                     // the reduce-scatter's slots: the 11 slides and 5 zeros
 constexpr int kWarps = 4;                      // keypoints per block; 1, 2 and 8 measured the same
+#ifndef STEREO_SAD_MIN_BLOCKS
+#define STEREO_SAD_MIN_BLOCKS 8
+#endif
+// Resident blocks an SM must hold: 8 caps a thread at 64 registers, so
+// that a batched step's 8,000 warps take two waves (the compiler's own
+// choice, 82, gave 20 warps an SM; 12 and 16 blocks spill).
+constexpr int kMinBlocks = STEREO_SAD_MIN_BLOCKS;
 
-__global__ void stereo_sad_kernel(const float* __restrict__ atlas_l,
-                                  const int* __restrict__ xy_l,
-                                  const float* __restrict__ atlas_r,
-                                  const float* __restrict__ cx,
-                                  const float* __restrict__ cy, int h, int w, int n,
-                                  int total, float* __restrict__ sad) {
-  __shared__ float s_left[kWarps][kLeft];
-  __shared__ float s_strip[kWarps][kStrip];
+#ifndef STEREO_SAD_HOST
+// The block's shared memory: per warp the raw right window, then the strip.
+__device__ __forceinline__ unsigned char* shared_base() {
+  __shared__ __align__(16) unsigned char s[kWarps * (kRaw + kStrip) * 4];
+  return s;
+}
+#endif
 
+// A lane that holds slot s after the reduce-scatter: the lane's bits 4,
+// 3, 2, 1 (the halves it kept at xor 16, 8, 4, 2) are the slot's bits 3,
+// 2, 1, 0.
+__device__ __forceinline__ int holder(int s) {
+  return ((s >> 3) & 1) << 4 | ((s >> 2) & 1) << 3 | ((s >> 1) & 1) << 2 | (s & 1) << 1;
+}
+
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks) stereo_sad_kernel(
+    const float* __restrict__ atlas_l, const int* __restrict__ xy_l, const float* __restrict__ atlas_r,
+    const float* __restrict__ cx, const float* __restrict__ cy, int h, int w, int n, int total,
+    float* __restrict__ sad) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int k = blockIdx.x * kWarps + warp;
-  if (k >= total) return;
-  float* left = s_left[warp];
-  float* strip = s_strip[warp];
-  const long long pair = static_cast<long long>(k / n) * h * w;
-  const float* atlas_lb = atlas_l + pair;
-  const float* atlas_rb = atlas_r + pair;
+  float* raw = reinterpret_cast<float*>(shared_base()) + warp * (kRaw + kStrip);
+  float* strip = raw + kRaw;
 
-  // Left patch: tile rows/columns 10..20, minus the centre (tile (15, 15)).
-  {
-    const int x0 = min(max(xy_l[2 * k] - kHalfPatch, 0), w - kTile) + kHalfPatch - kSadW;
-    const int y0 = min(max(xy_l[2 * k + 1] - kHalfPatch, 0), h - kTile) + kHalfPatch - kSadW;
-    const float* p = atlas_lb + static_cast<long long>(y0) * w + x0;
-    const float centre = p[static_cast<long long>(kSadW) * w + kSadW];
-    for (int e = lane; e < kLeft; e += 32) {
-      const int r = e / kWin, c = e - r * kWin;
-      left[e] = __fsub_rn(p[static_cast<long long>(r) * w + c], centre);
-    }
-  }
-  // Right strip: blend rows 10..20, columns 5..25 of the tile at the
-  // floored centre.
-  {
+  for (int k = blockIdx.x * kWarps + warp; k < total; k += gridDim.x * kWarps) {
+    const long long pair = static_cast<long long>(k / n) * h * w;
+    const int xl = xy_l[2 * k], yl = xy_l[2 * k + 1];
     const float cxv = cx[k], cyv = cy[k];
+
+    // Left patch: tile rows/columns 10..20; right: the raw 12 x 22 window
+    // under the blend of rows 10..20, columns 5..25 of the tile at the
+    // floored centre.  Every load issued here, before any is used.
+    const int lx0 = min(max(xl - kHalfPatch, 0), w - kTile) + kHalfPatch - kSadW;
+    const int ly0 = min(max(yl - kHalfPatch, 0), h - kTile) + kHalfPatch - kSadW;
+    const float* pl = atlas_l + pair + static_cast<long long>(ly0) * w + lx0;
     const float xi = floorf(cxv), yi = floorf(cyv);
+    const int rx0 = min(max(static_cast<int>(xi) - kHalfPatch, 0), w - kTile) + kHalfPatch - kSadW - kSlide;
+    const int ry0 = min(max(static_cast<int>(yi) - kHalfPatch, 0), h - kTile) + kHalfPatch - kSadW;
+    const float* pr = atlas_r + pair + static_cast<long long>(ry0) * w + rx0;
+    float left[kLeftPerLane], right[kRawPerLane];
+#pragma unroll
+    for (int i = 0; i < kLeftPerLane; ++i) {
+      const int e = lane + 32 * i;
+      const int r = e / kWin, c = e - r * kWin;
+      left[i] = e < kLeft ? pl[static_cast<long long>(r) * w + c] : 0.0f;
+    }
+    const float centre = pl[static_cast<long long>(kSadW) * w + kSadW];
+#pragma unroll
+    for (int i = 0; i < kRawPerLane; ++i) {
+      const int e = lane + 32 * i;
+      const int r = e / kRawW, c = e - r * kRawW;
+      right[i] = e < kRaw ? pr[static_cast<long long>(r) * w + c] : 0.0f;
+    }
+
     const float fx = __fsub_rn(cxv, xi), fy = __fsub_rn(cyv, yi);
     const float gx = __fsub_rn(1.0f, fx), gy = __fsub_rn(1.0f, fy);
     const float w00 = __fmul_rn(gy, gx), w01 = __fmul_rn(gy, fx);
     const float w10 = __fmul_rn(fy, gx), w11 = __fmul_rn(fy, fx);
-    const int x0 = min(max(static_cast<int>(xi) - kHalfPatch, 0), w - kTile) + kHalfPatch - kSadW - kSlide;
-    const int y0 = min(max(static_cast<int>(yi) - kHalfPatch, 0), h - kTile) + kHalfPatch - kSadW;
-    const float* p = atlas_rb + static_cast<long long>(y0) * w + x0;
-    for (int e = lane; e < kStrip; e += 32) {
-      const int r = e / kStripW, c = e - r * kStripW;
-      const float* q = p + static_cast<long long>(r) * w + c;
-      float v = __fmul_rn(w00, q[0]);
-      v = __fadd_rn(v, __fmul_rn(w01, q[1]));
-      v = __fadd_rn(v, __fmul_rn(w10, q[w]));
-      v = __fadd_rn(v, __fmul_rn(w11, q[w + 1]));
-      strip[e] = v;
+#pragma unroll
+    for (int i = 0; i < kRawPerLane; ++i) {
+      const int e = lane + 32 * i;
+      if (e < kRaw) raw[e] = right[i];
     }
-  }
-  __syncwarp();
-
-  int base[kPerLane];     // strip index of this lane's elements at slide 0
-  float mine_l[kPerLane];
+    __syncwarp();
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int e = lane + 32 * i;
-    const int r = e / kWin, c = e - r * kWin;
-    base[i] = e < kLeft ? r * kStripW + c : -1;
-    mine_l[i] = e < kLeft ? left[e] : 0.0f;
-  }
-  float mine = 0.0f;
-  for (int s = 0; s < kOffsets; ++s) {
-    const float centre = strip[kSadW * kStripW + s + kSadW];
-    float acc = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      if (base[i] >= 0) {
-        const float rv = __fsub_rn(strip[base[i] + s], centre);
-        acc = __fadd_rn(acc, fabsf(__fsub_rn(mine_l[i], rv)));
+    for (int i = 0; i < kStripPerLane; ++i) {
+      const int e = lane + 32 * i;
+      if (e < kStrip) {
+        const int r = e / kStripW, c = e - r * kStripW;
+        const float* q = raw + r * kRawW + c;
+        float v = __fmul_rn(w00, q[0]);
+        v = __fadd_rn(v, __fmul_rn(w01, q[1]));
+        v = __fadd_rn(v, __fmul_rn(w10, q[kRawW]));
+        v = __fadd_rn(v, __fmul_rn(w11, q[kRawW + 1]));
+        strip[e] = v;
       }
     }
+    __syncwarp();
+
+    // The lane's partial of each slide: its elements lane, lane + 32, ...
+    // in ascending order, the eleven slides as independent chains.
+    float acc[kSlots];
 #pragma unroll
-    for (int m = 16; m > 0; m >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, m);
-    if (lane == s) mine = acc;
+    for (int s = 0; s < kSlots; ++s) acc[s] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kLeftPerLane; ++i) {
+      const int e = lane + 32 * i;
+      if (e < kLeft) {
+        const int r = e / kWin, c = e - r * kWin;
+        const float l = __fsub_rn(left[i], centre);
+        const float* row = strip + r * kStripW + c;
+#pragma unroll
+        for (int s = 0; s < kOffsets; ++s) {
+          const float rv = __fsub_rn(row[s], strip[kSadW * kStripW + s + kSadW]);
+          acc[s] = __fadd_rn(acc[s], fabsf(__fsub_rn(l, rv)));
+        }
+      }
+    }
+
+    // Reduce-scatter: at distance m a lane keeps the upper half of its
+    // slots if its m bit is set, else the lower, and adds its partner's
+    // copy of the half it keeps.
+#pragma unroll
+    for (int m = 16, half = kSlots / 2; m > 1; m >>= 1, half >>= 1) {
+      const bool upper = (lane & m) != 0;
+#pragma unroll
+      for (int j = 0; j < half; ++j) {
+        const float send = upper ? acc[j] : acc[j + half];
+        const float keep = upper ? acc[j + half] : acc[j];
+        acc[j] = __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, m));
+      }
+    }
+    acc[0] = __fadd_rn(acc[0], __shfl_xor_sync(0xffffffffu, acc[0], 1));
+    const float mine = __shfl_sync(0xffffffffu, acc[0], holder(lane < kOffsets ? lane : 0));
+    if (lane < kOffsets) sad[static_cast<long long>(k) * kOffsets + lane] = mine;
   }
-  if (lane < kOffsets) sad[static_cast<long long>(k) * kOffsets + lane] = mine;
 }
 
 }  // namespace
 
 // atlas_l, atlas_r: float32 [b, h, w] contiguous; xy_l: int32 [b, n, 2]
 // (x, y) left atlas keypoints; cx, cy: float32 [b, n] right centres (atlas
-// coordinates); sad: float32 [b, n, 11]; total = b * n.  Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int stereo_sad_launch(const float* atlas_l, const int* xy_l,
-                                 const float* atlas_r, const float* cx,
-                                 const float* cy, int h, int w, int n, int total,
-                                 float* sad, void* stream) {
+// coordinates); sad: float32 [b, n, 11]; total = b * n.  Launches one
+// warp per keypoint on `stream`; returns cudaGetLastError().
+extern "C" int stereo_sad_launch(const float* atlas_l, const int* xy_l, const float* atlas_r, const float* cx,
+                                 const float* cy, int h, int w, int n, int total, float* sad, void* stream) {
   if (total > 0) {
     stereo_sad_kernel<<<(total + kWarps - 1) / kWarps, 32 * kWarps, 0, static_cast<cudaStream_t>(stream)>>>(
         atlas_l, xy_l, atlas_r, cx, cy, h, w, n, total, sad);

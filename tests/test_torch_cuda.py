@@ -1,5 +1,7 @@
 """Tests that need a CUDA card: the hand-written kernels (patch tiles,
-fused describe, fused stereo SAD, one pair or a batch of pairs, the pose
+fused describe, fused stereo SAD, one pair or a batch of pairs, the two
+front-end kernels bit for bit against the numpy emulation of their
+order of operations in tests/torch_kernel_emulation.py, the pose
 solve at the three cells' shapes, one solve or a batch in one launch)
 against their plain versions, and the point front end (one pair or a
 batch), the line front end and the frames of mono and RGB-D images on
@@ -120,6 +122,89 @@ def test_batched_stereo_sad_kernel_matches_plain_in_one_launch(cuda):
     assert float((sad.argmin(-1) == ref.argmin(-1)).float().mean()) >= 0.999
     for i in range(b):
         assert torch.equal(sad[i], stereo_sad.stereo_sad(atlas[i], axy[i], atlas[b + i], cx[i], cy[i]))
+
+
+def _emulation():
+    """tests/torch_kernel_emulation.py: the numpy emulations of the two
+    front-end kernels' order of operations (no jax)."""
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_emulation", os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_kernel_emulation.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _card_atan2(y, x):
+    """The card's float32 atan2 (the kernel's atan2f) on numpy arrays."""
+    yt, xt = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda() for a in (y, x))
+    return torch.atan2(yt, xt).cpu().numpy()
+
+
+@pytest.mark.parametrize("h,w,n", [(100, 300, 40), (40, 40, 24)])
+def test_describe_kernel_is_the_emulations_bits(cuda, h, w, n):
+    """The kernel's angles and descriptors equal, bit for bit, the numpy
+    emulation of the first design's order (three 9-tap products per
+    output, fused multiply-adds in ascending columns; the card's atan2f),
+    on border, clamped and +-0.5-offset keypoints; a rerun gives the same
+    bits."""
+    atlas, axy, delta = _atlas_and_keypoints(cuda, h, w, n, 3 * n + h)
+    delta[:, :4] = torch.tensor([[0.5, 0.5], [-0.5, -0.5], [0.5, -0.5], [0.0, 0.0]], device=cuda)
+    ang, desc = describe.describe_keypoints(atlas, axy, delta)
+    torch.cuda.synchronize()
+    want_a, want_d = _emulation().describe_todays_order(atlas.cpu().numpy(), axy.cpu().numpy(), delta.cpu().numpy(),
+                                                        atan2=_card_atan2)
+    np.testing.assert_array_equal(desc.cpu().numpy(), want_d)
+    np.testing.assert_array_equal(ang.cpu().numpy().view(np.uint32), want_a.view(np.uint32))
+    again_a, again_d = describe.describe_keypoints(atlas, axy, delta)
+    assert torch.equal(again_d, desc) and torch.equal(again_a.view(torch.int32), ang.view(torch.int32))
+
+
+@pytest.mark.parametrize("fractional", [False, True])
+def test_stereo_sad_kernel_is_the_emulations_bits(cuda, fractional):
+    """The kernel's sums equal, bit for bit, the numpy emulation of the
+    first design's order (lane partials in ascending elements, one
+    butterfly per slide), at whole and fractional centres, border and
+    clamped windows among them; a rerun gives the same bits."""
+    h, w, n = 100, 300, 48
+    atlas, axy, _ = _atlas_and_keypoints(cuda, h, w, n, 5 + fractional)
+    rng = np.random.default_rng(11 + fractional)
+    cx = np.floor(axy[0, :, 0].cpu().numpy() - rng.uniform(0, 60, n)).astype(np.float32)
+    cy = axy[0, :, 1].cpu().numpy().astype(np.float32)
+    cx[:4], cy[:4] = [0, w - 1, -3, w + 4], [0, h - 1, h + 2, -5]
+    if fractional:
+        cx, cy = cx + rng.uniform(0, 1, n).astype(np.float32), cy + rng.uniform(0, 1, n).astype(np.float32)
+    args = (atlas[0], axy[0], atlas[1], torch.from_numpy(cx).to(cuda), torch.from_numpy(cy).to(cuda))
+    sad = stereo_sad.stereo_sad(*args)
+    torch.cuda.synchronize()
+    want = _emulation().sad_todays_order(*(a.cpu().numpy() for a in args))
+    np.testing.assert_array_equal(sad.cpu().numpy().view(np.uint32), want.view(np.uint32))
+    assert torch.equal(stereo_sad.stereo_sad(*args).view(torch.int32), sad.view(torch.int32))
+
+
+def test_batch_of_eight_pairs_is_one_launch_of_each_front_end_kernel(cuda):
+    """orb_describe over the 16 images of 8 stereo pairs and stereo_sad over
+    the 8 pairs: one launch each, and each image's or pair's outputs the
+    bits of its own launch."""
+    b, h, w, n = 8, 120, 200, 64
+    rng = np.random.default_rng(8)
+    noise = torch.from_numpy((rng.random((2 * b, 1, h, w)) * 255).astype(np.float32)).to(cuda)
+    atlas = torch.nn.functional.avg_pool2d(noise, 5, 1, 2, count_include_pad=False)[:, 0].contiguous()
+    xy = np.stack([rng.integers(-20, w + 20, (2 * b, n)), rng.integers(-20, h + 20, (2 * b, n))], -1)
+    axy = torch.from_numpy(xy.astype(np.int32)).to(cuda)
+    delta = torch.from_numpy(rng.uniform(-0.5, 0.5, (2 * b, n, 2)).astype(np.float32)).to(cuda)
+    cx = (axy[:b, :, 0].float() - torch.from_numpy(rng.uniform(0, 60, (b, n)).astype(np.float32)).to(cuda)).contiguous()
+    cy = (axy[:b, :, 1].float() + torch.from_numpy(rng.uniform(0, 1, (b, n)).astype(np.float32)).to(cuda)).contiguous()
+    before = (describe.launches, stereo_sad.launches)
+    ang, desc = describe.describe_keypoints(atlas, axy, delta)
+    sad = stereo_sad.stereo_sad(atlas[:b], axy[:b].contiguous(), atlas[b:], cx, cy)
+    torch.cuda.synchronize()
+    assert (describe.launches, stereo_sad.launches) == (before[0] + 1, before[1] + 1)
+    assert ang.shape == (2 * b * n,) and sad.shape == (b, n, 11)
+    for i in range(2 * b):
+        a1, d1 = describe.describe_keypoints(atlas[i:i + 1], axy[i:i + 1], delta[i:i + 1])
+        assert torch.equal(d1, desc[i * n:(i + 1) * n]) and torch.equal(a1, ang[i * n:(i + 1) * n])
+    for i in range(b):
+        assert torch.equal(stereo_sad.stereo_sad(atlas[i], axy[i], atlas[b + i], cx[i], cy[i]), sad[i])
 
 
 def test_batched_frames_on_card_launch_each_kernel_once(cuda):

@@ -5,8 +5,13 @@ ballot packing, lane-ordered SAD sums) emulated in numpy against the plain
 versions, input checks, launch counting, and the kernel loader with a
 stand-in compiler.  Tolerances are stated per test."""
 
+import ctypes
+import ctypes.util
+import importlib.util
 import os
+import shutil
 import stat
+import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +26,10 @@ from orb_line_slam_tpu.ops.pallas_patches import gather_patch_tiles as jax_gathe
 from orb_line_slam_tpu_torch.ops import _build, brief as tbrief, describe, patches, stereo_sad as tsad
 
 torch.set_num_threads(1)
+_spec = importlib.util.spec_from_file_location(
+    "torch_kernel_emulation", os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_kernel_emulation.py"))
+emulation = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(emulation)
 T = lambda a: torch.from_numpy(np.array(a))  # noqa: E731  (writable copy)
 
 
@@ -122,52 +131,12 @@ def test_shift_blur_bands_hold_the_whole_matrices():
 
 
 def _emulate_describe_kernel(atlas, xy, delta):
-    """csrc/orb_describe.cu step by step in numpy float32: banded products
-    in ascending column order, the weighted sums rounded term by term,
-    integer moments, the angle bin by the reciprocal product, and bits
-    packed as little-endian 32-bit ballot words."""
-    f32 = np.float32
-    bands = describe.shift_blur_bands()
-    rot = tbrief._rotated_flat_indices()
-    b, n = xy.shape[:2]
-    h, w = atlas.shape[1:]
-    angles = np.zeros(b * n, f32)
-    desc = np.zeros((b * n, 8), np.uint32)
-    vv, uu = np.mgrid[0:32, 0:32] - 15
-    disk = (uu * uu + vv * vv <= 225) & (uu <= 15) & (vv <= 15)
-    for k in range(b * n):
-        x, y = xy.reshape(-1, 2)[k]
-        x0, y0 = min(max(x - 15, 0), w - 32), min(max(y - 15, 0), h - 32)
-        tile = atlas[k // n, y0:y0 + 32, x0:x0 + 32]
-        dx, dy = delta.reshape(-1, 2)[k]
-        wx = (max(-dx, f32(0)), f32(1) - abs(dx), max(dx, f32(0)))
-        wy = (max(-dy, f32(0)), f32(1) - abs(dy), max(dy, f32(0)))
-
-        def banded(src):                       # out[m][i, :] = sum_j A_m[i, j] src[j, :]
-            out = np.zeros((3, 32, 32), f32)
-            for i in range(32):
-                for o in range(9):
-                    j = i - 4 + o
-                    if 0 <= j < 32:
-                        out[:, i, :] += bands[:, i, o, None] * src[j][None, :]
-            return out
-
-        pm, p0, pp = banded(tile)
-        ty = (wy[0] * pm + wy[1] * p0) + wy[2] * pp
-        pm, p0, pp = banded(ty.T)              # out[i, r] = sum_j A[i, j] ty[r, j]
-        tb = ((wx[0] * pm + wx[1] * p0) + wx[2] * pp).T
-        q = np.rint(tb * f32(16)).astype(np.int32)
-        m10, m01, m00 = (int((q * uu)[disk].sum()), int((q * vv)[disk].sum()), int(q[disk].sum()))
-        f10, f01, f00 = f32(m10), f32(m01), f32(m00)
-        offset = np.sqrt(f10 * f10 + f01 * f01) / max(f00, f32(1e-6))
-        a = np.arctan2(f01, f10) if offset >= 0.5 else f32(0)
-        angles[k] = a
-        bin_ = int(np.rint(f32(a) * f32(describe._INV_BIN))) % 30
-        flat = q.reshape(-1)
-        test = flat[rot[bin_, 256:]] > flat[rot[bin_, :256]]
-        for g in range(8):
-            desc[k, g] = sum(1 << lane for lane in range(32) if test[g * 32 + lane])
-    return angles, desc.astype("<u4").view(np.uint8).reshape(b * n, 32)
+    """csrc/orb_describe.cu's first design step by step in numpy float32
+    (tests/torch_kernel_emulation.py): banded products in ascending column
+    order with fused multiply-adds, the weighted sums rounded term by
+    term, integer moments, the angle bin by the reciprocal product, and
+    bits packed as little-endian 32-bit ballot words."""
+    return emulation.describe_todays_order(atlas, xy, delta)
 
 
 def test_kernel_arithmetic_emulated_matches_plain_version():
@@ -227,38 +196,11 @@ def test_stereo_sad_reference_matches_jax(seed, h, w, n, fractional):
 
 
 def _emulate_sad_kernel(atlas_l, xy_l, atlas_r, cx, cy):
-    """csrc/stereo_sad.cu in numpy float32: windows addressed through the
+    """csrc/stereo_sad.cu's first design in numpy float32
+    (tests/torch_kernel_emulation.py): windows addressed through the
     clamped tile origins, the blend term by term, each lane summing
     elements lane, lane + 32, ... and a butterfly over the 32 lanes."""
-    f32 = np.float32
-    h, w = atlas_l.shape
-    n = len(cx)
-    out = np.zeros((n, 11), f32)
-    for k in range(n):
-        x0 = min(max(xy_l[k, 0] - 15, 0), w - 32) + 10
-        y0 = min(max(xy_l[k, 1] - 15, 0), h - 32) + 10
-        left = atlas_l[y0:y0 + 11, x0:x0 + 11]
-        left = (left - left[5, 5]).reshape(-1)
-        xi, yi = np.floor(cx[k]), np.floor(cy[k])
-        fx, fy = f32(cx[k] - xi), f32(cy[k] - yi)
-        gx, gy = f32(1) - fx, f32(1) - fy
-        x0 = min(max(int(xi) - 15, 0), w - 32) + 5
-        y0 = min(max(int(yi) - 15, 0), h - 32) + 10
-        src = atlas_r[y0:y0 + 12, x0:x0 + 22]
-        strip = (gy * gx) * src[:-1, :-1]
-        strip = strip + (gy * fx) * src[:-1, 1:]
-        strip = strip + (fy * gx) * src[1:, :-1]
-        strip = strip + (fy * fx) * src[1:, 1:]
-        for s in range(11):
-            win = (strip[:, s:s + 11] - strip[5, s + 5]).reshape(-1)
-            term = np.abs(left - win)
-            lanes = np.zeros(32, f32)
-            for e in range(121):
-                lanes[e % 32] += term[e]
-            for m in (16, 8, 4, 2, 1):
-                lanes = lanes + lanes[np.arange(32) ^ m]
-            out[k, s] = lanes[0]
-    return out
+    return emulation.sad_todays_order(atlas_l, xy_l, atlas_r, cx, cy)
 
 
 @pytest.mark.parametrize("fractional", [False, True])
@@ -270,6 +212,295 @@ def test_sad_kernel_arithmetic_emulated_matches_plain_version(fractional):
     ref = tsad.stereo_sad_reference(*(T(a) for a in args)).numpy()
     assert (np.abs(emu - ref) <= 1e-5 * ref + 1e-2).all()
     np.testing.assert_array_equal(emu.argmin(1), ref.argmin(1))
+
+
+# ---------------------------------------------------------------------------
+# The current designs: the row reuse of orb_describe.cu and the reduce-scatter
+# of stereo_sad.cu, emulated and compiled for the host.
+
+def _reuse_rows(big, small, shift):
+    """Rows i of `big` equal, element for element, to row i + shift of `small`."""
+    return [i for i in range(32) if 0 <= i + shift < 32 and np.array_equal(big[i], small[i + shift])]
+
+
+def test_shift_blur_row_reuse_identity():
+    """Am's row i is A0's row i - 1 and Ap's row i is A0's row i + 1,
+    element for element, on exactly the ranges orb_describe.cu reads off
+    A0's products (and on no row just outside them); the taps each matrix
+    leaves out are zero in every row; A0's interior rows hold one band on
+    exactly the kernel's range."""
+    Am, A0, Ap = describe._shift_blur_mats()
+    kc = emulation.kernel_constants("orb_describe")
+    am, ap = _reuse_rows(Am, A0, -1), _reuse_rows(Ap, A0, 1)
+    assert am == list(range(kc["kAmReuseFirst"], kc["kAmReuseLast"] + 1)) == list(range(4, 29))
+    assert ap == list(range(kc["kApReuseFirst"], kc["kApReuseLast"] + 1)) == list(range(3, 28))
+    for big, lo, hi, shift in ((Am, 4, 28, -1), (Ap, 3, 27, 1)):
+        assert not np.array_equal(big[lo - 1], A0[lo - 1 + shift]) and not np.array_equal(big[hi + 1], A0[hi + 1 + shift])
+    bands = describe.shift_blur_bands()
+    for m, first in enumerate((kc["kAmTap0"], kc["kA0Tap0"], kc["kApTap0"])):
+        used = np.zeros(describe.BAND_TAPS, bool)
+        used[first:first + kc["kUsed"]] = True
+        assert not bands[m][:, ~used].any() and bands[m][:, used].any(0).all()
+    assert 32 - len(am) == 7 and 32 - len(ap) == 7
+    # A0's interior rows hold one band, bit for bit (the kernel keeps it in
+    # registers), and no row just outside holds it.
+    lo, hi = kc["kA0InteriorFirst"], kc["kA0InteriorLast"]
+    same = [i for i in range(32) if np.array_equal(bands[1, i], bands[1, lo])]
+    assert same == list(range(lo, hi + 1)) == list(range(3, 29))
+
+
+def _border_cases(seed, b, h, w, n):
+    """Keypoints with border, clamped and out-of-range ones, offsets of
+    exactly +-0.5 on both axes among random ones."""
+    xy, delta = _keypoints(seed, b, h, w, n)
+    delta[:, 4:8] = [[0.5, 0.5], [-0.5, -0.5], [0.5, 0.0], [0.0, -0.5]]
+    return xy, delta
+
+
+@pytest.mark.parametrize("seed,h,w,n", [(21, 96, 128, 48), (22, 40, 40, 24)])
+def test_describe_new_order_emulated_is_todays_bit_for_bit(seed, h, w, n):
+    """A0's products with Am's and Ap's interior rows read off them and
+    seven taps each give today's quantised tiles, angles and descriptors
+    bit for bit."""
+    atlas = _atlas(seed, 2, h, w)
+    xy, delta = _border_cases(seed + 1, 2, h, w, n)
+    q0, a0, d0 = emulation.describe_todays_order(atlas, xy, delta, with_q=True)
+    q1, a1, d1 = emulation.describe_new_order(atlas, xy, delta, with_q=True)
+    np.testing.assert_array_equal(q1, q0)
+    np.testing.assert_array_equal(a1.view(np.uint32), a0.view(np.uint32))
+    np.testing.assert_array_equal(d1, d0)
+    a, d = _emulate_describe_kernel(atlas, xy, delta)
+    np.testing.assert_array_equal(a.view(np.uint32), a0.view(np.uint32))
+    np.testing.assert_array_equal(d, d0)
+
+
+@pytest.mark.parametrize("fractional", [False, True])
+def test_sad_new_order_emulated_is_todays_bit_for_bit(fractional):
+    """The eleven slides reduced together by the reduce-scatter give
+    today's one-butterfly-per-slide sums bit for bit, at whole and
+    fractional centres, border and clamped windows among them."""
+    args = _sad_inputs(23, 64, 96, 60, fractional)
+    got = emulation.sad_new_order(*args)
+    np.testing.assert_array_equal(got.view(np.uint32), _emulate_sad_kernel(*args).view(np.uint32))
+
+
+_HOST_SHIM = r"""
+#include <barrier>
+#include <cmath>
+#include <cstring>
+#include <math.h>
+#include <memory>
+#include <thread>
+#include <vector>
+#define ORB_DESCRIBE_HOST 1
+#define STEREO_SAD_HOST 1
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __restrict__
+using std::max;
+using std::min;
+struct Dim3 { unsigned x = 0, y = 0, z = 0; };
+struct float4 { float x, y, z, w; };
+thread_local Dim3 threadIdx, blockIdx, gridDim;
+// A warp: its barrier and two exchange buffers, used in turn (a thread
+// writes one only after all have passed the barrier that follows their
+// read of it).
+struct HostWarp {
+  std::barrier<> bar{32};
+  alignas(8) unsigned char ex[2][32 * 8];
+};
+// A CTA: its own shared memory (filled with NaN bytes: nothing may read
+// what it did not write), its barrier, its warps, its groups' barriers.
+struct HostCta {
+  HostCta(int bytes, int threads, int group_threads)
+      : smem(bytes, 0xff), block(threads), warps(threads / 32) {
+    for (int g = 0; g < threads / group_threads; ++g) groups.push_back(std::make_unique<std::barrier<>>(group_threads));
+  }
+  std::vector<unsigned char> smem;
+  std::barrier<> block;
+  std::vector<HostWarp> warps;
+  std::vector<std::unique_ptr<std::barrier<>>> groups;
+};
+thread_local HostCta* t_cta = nullptr;
+thread_local int t_phase = 0;
+inline void __syncthreads() { t_cta->block.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { t_cta->warps[threadIdx.x >> 5].bar.arrive_and_wait(); }
+inline void group_sync(int group) { t_cta->groups[group]->arrive_and_wait(); }
+inline unsigned char* shared_base() { return t_cta->smem.data(); }
+// The asynchronous copy as a plain copy, and its wait as nothing.
+inline void copy_async(float* dst, const float* src) { *dst = *src; }
+inline void commit_and_wait_previous() {}
+template <class T> unsigned char* host_post(T v) {
+  HostWarp& w = t_cta->warps[threadIdx.x >> 5];
+  unsigned char* ex = w.ex[t_phase];
+  t_phase ^= 1;
+  std::memcpy(ex + 8 * (threadIdx.x & 31), &v, sizeof(T));
+  w.bar.arrive_and_wait();
+  return ex;
+}
+template <class T> T host_exchange(T v, int src_lane) {
+  const unsigned char* ex = host_post(v);
+  T r;
+  std::memcpy(&r, ex + 8 * src_lane, sizeof(T));
+  return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int lane) { return host_exchange(v, lane & 31); }
+template <class T> T __shfl_xor_sync(unsigned, T v, int mask) { return host_exchange(v, (threadIdx.x & 31) ^ mask); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const unsigned char* ex = host_post(pred ? 1 : 0);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) {
+    int v;
+    std::memcpy(&v, ex + 8 * l, sizeof(int));
+    if (v) r |= 1u << l;
+  }
+  return r;
+}
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline int __float2int_rn(float a) { return static_cast<int>(std::nearbyint(a)); }
+inline float __int2float_rn(int a) { return static_cast<float>(a); }
+inline float __int_as_float(int a) { float f; std::memcpy(&f, &a, 4); return f; }
+inline int __float_as_int(float a) { int i; std::memcpy(&i, &a, 4); return i; }
+"""
+
+# `ctas` CTAs of the source's block size, each CUDA thread a host thread.
+_HOST_LAUNCH = {
+    "orb_describe": r"""
+extern "C" void host_launch(const float* atlas, int b, int h, int w, const int* xy, const float* delta, int n,
+                            const float* band, const short* rot, float inv_bin, float* angle, unsigned char* desc,
+                            int ctas) {
+  std::vector<std::unique_ptr<HostCta>> cta;
+  for (int c = 0; c < ctas; ++c) cta.push_back(std::make_unique<HostCta>(kSharedBytes, kThreads, 32 * kGroup));
+  std::vector<std::thread> threads;
+  for (int c = 0; c < ctas; ++c) {
+    for (int i = 0; i < kThreads; ++i) {
+      threads.emplace_back([&, c, i] {
+        t_cta = cta[c].get();
+        threadIdx.x = i;
+        blockIdx.x = c;
+        gridDim.x = ctas;
+        orb_describe_kernel(atlas, h, w, xy, delta, n, b * n, band, rot, inv_bin, angle,
+                            reinterpret_cast<unsigned*>(desc));
+      });
+    }
+  }
+  for (auto& th : threads) th.join();
+}
+""",
+    "stereo_sad": r"""
+extern "C" void host_launch(const float* atlas_l, const int* xy_l, const float* atlas_r, const float* cx,
+                            const float* cy, int h, int w, int n, int total, float* sad, int ctas) {
+  std::vector<std::unique_ptr<HostCta>> cta;
+  for (int c = 0; c < ctas; ++c) cta.push_back(std::make_unique<HostCta>(kWarps * (kRaw + kStrip) * 4, 32 * kWarps, 32));
+  std::vector<std::thread> threads;
+  for (int c = 0; c < ctas; ++c) {
+    for (int i = 0; i < 32 * kWarps; ++i) {
+      threads.emplace_back([&, c, i] {
+        t_cta = cta[c].get();
+        threadIdx.x = i;
+        blockIdx.x = c;
+        gridDim.x = ctas;
+        stereo_sad_kernel(atlas_l, xy_l, atlas_r, cx, cy, h, w, n, total, sad);
+      });
+    }
+  }
+  for (auto& th : threads) th.join();
+}
+""",
+}
+
+
+def _host_build(tmp_path_factory, name, flags=()):
+    """csrc/<name>.cu compiled for the host by g++ (its kernel and device
+    functions as written; the shuffles, barriers, shared memory and the
+    asynchronous copy replaced by the shim's, the launcher by a host one)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs g++ (C++20) to compile the kernel source for the host")
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    d = tmp_path_factory.mktemp(f"{name}_host")
+    (d / "host.cpp").write_text(_HOST_SHIM + src[: src.index("}  // namespace")] + "}  // namespace\n"
+                                + _HOST_LAUNCH[name])
+    built = subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-strict-aliasing", "-pthread",
+                            "-shared", "-fPIC", *flags, "-o", str(d / "libhost.so"), str(d / "host.cpp")],
+                           capture_output=True, text=True, timeout=300)
+    assert built.returncode == 0, built.stderr[-3000:]
+    lib = ctypes.CDLL(str(d / "libhost.so"))
+    lib.host_launch.restype = None
+    return lib
+
+
+_DESCRIBE_BUILDS = {"one warp": (), "two warps": ("-DORB_DESCRIBE_GROUP=2",),
+                    "pass loop": ("-DORB_DESCRIBE_PASS_LOOP=1",)}
+
+
+@pytest.fixture(scope="module", params=list(_DESCRIBE_BUILDS))
+def host_describe(request, tmp_path_factory):
+    """orb_describe.cu for the host: one keypoint per warp (as built for
+    the card), per group of two warps (-DORB_DESCRIBE_GROUP=2), or both
+    passes through one copy of the blur (-DORB_DESCRIBE_PASS_LOOP=1)."""
+    flags = _DESCRIBE_BUILDS[request.param]
+    lib = _host_build(tmp_path_factory, "orb_describe", flags)
+    lib.host_launch.argtypes = [*describe._ARGTYPES, ctypes.c_int]
+    return lib
+
+
+@pytest.fixture(scope="module")
+def host_sad(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, "stereo_sad")
+    lib.host_launch.argtypes = [*tsad._ARGTYPES, ctypes.c_int]
+    return lib
+
+
+def _libm_atan2f():
+    """The C library's atan2f (the host compile's), batched over numpy arrays."""
+    fn = ctypes.CDLL(ctypes.util.find_library("m")).atan2f
+    fn.argtypes, fn.restype = [ctypes.c_float, ctypes.c_float], ctypes.c_float
+    return lambda y, x: np.array([fn(float(a), float(b)) for a, b in zip(y, x)], np.float32)
+
+
+def test_describe_source_on_host_threads_is_the_emulations_bits(host_describe):
+    """csrc/orb_describe.cu over 2 persistent CTAs on 64 keypoints of two
+    images: the emulation's angles (with the same atan2f) and descriptors
+    bit for bit, and a rerun the same bits."""
+    atlas = _atlas(31, 2, 72, 90)
+    xy, delta = _border_cases(32, 2, 72, 90, 32)
+    bands, rot = (t.contiguous() for t in describe._kernel_tables_on(torch.device("cpu")))
+
+    def run():
+        angle, desc = torch.full((64,), float("nan")), torch.zeros((64, 32), dtype=torch.uint8)
+        A, X, D = T(atlas), T(xy), T(delta)
+        host_describe.host_launch(A.data_ptr(), 2, 72, 90, X.data_ptr(), D.data_ptr(), 32, bands.data_ptr(),
+                                  rot.data_ptr(), describe._INV_BIN, angle.data_ptr(), desc.data_ptr(), 2)
+        return angle.numpy(), desc.numpy()
+
+    angle, desc = run()
+    want_a, want_d = emulation.describe_new_order(atlas, xy, delta, atan2=_libm_atan2f())
+    np.testing.assert_array_equal(desc, want_d)
+    np.testing.assert_array_equal(angle.view(np.uint32), want_a.view(np.uint32))
+    again = run()
+    np.testing.assert_array_equal(again[0].view(np.uint32), angle.view(np.uint32))
+    np.testing.assert_array_equal(again[1], desc)
+
+
+@pytest.mark.parametrize("fractional", [False, True])
+def test_sad_source_on_host_threads_is_the_emulations_bits(host_sad, fractional):
+    """csrc/stereo_sad.cu over 2 CTAs (a stride loop of 8 warps) on 64
+    keypoints: the emulation's sums bit for bit, at whole and fractional
+    centres."""
+    args = _sad_inputs(33, 64, 96, 64, fractional)
+    al, xl, ar, cx, cy = (T(a) for a in args)
+    sad = torch.full((64, 11), float("nan"))
+    host_sad.host_launch(al.data_ptr(), xl.data_ptr(), ar.data_ptr(), cx.data_ptr(), cy.data_ptr(), 64, 96, 64, 64,
+                         sad.data_ptr(), 2)
+    np.testing.assert_array_equal(sad.numpy().view(np.uint32), emulation.sad_new_order(*args).view(np.uint32))
 
 
 def test_cpu_tensors_take_plain_versions_without_counting():
