@@ -207,8 +207,15 @@ run pinned instead (about 13 minutes each on the card).
 ``python3 chip_smoke.py --compare-parent DIR`` drives phases 5 and 7's
 slices through the package of the tree at DIR (an unpacked parent
 commit) and of this checkout in turns, parent, this, this, parent, each
-in its own process, and prints frames/s, host ms and the profiled
-kernels per frame side by side.  ``python3 chip_smoke.py
+in its own process, and prints frames/s, host ms, ATE, keyframes and the
+profiled kernels per frame side by side; it also hashes orb_describe's
+and stereo_sad's outputs on fixed seeded inputs at phase 3's nine shapes
+in each process, fails unless every hash is the same, and prints the
+two kernels' own device times side by side.  ``python3 chip_smoke.py
+--front-end-variants`` times build options of the two front-end
+sources (warps a CTA, two warps a keypoint, the SAD's register cap) in
+turns, their bits held to the shipped build's; ``--front-end-split``
+prints where a warp's cycles go in each (split counters built in).  ``python3 chip_smoke.py
 --schedule-probe DIR N OUT`` repeats phases 11 (a) and 14 (a) N times
 through the package at DIR and prints how their ATEs and the deferred
 BAs' lags repeat.  ``python3 chip_smoke.py --pose-split [DIR]`` splits
@@ -3182,9 +3189,10 @@ def front_end_probe():
 # --front-end-variants: build options of the two front-end sources, each
 # timed beside the build that ships (the first of each).
 FRONT_END_VARIANTS = {
-    "orb_describe": {"one warp a keypoint, 16 warps a CTA": (), "two warps a keypoint, 16 warps a CTA":
-                     ("-DORB_DESCRIBE_GROUP=2",), "one warp a keypoint, 8 warps a CTA": ("-DORB_DESCRIBE_WARPS=8",),
-                     "both passes through one copy of the blur": ("-DORB_DESCRIBE_PASS_LOOP=1",)},
+    "orb_describe": {"one warp a keypoint, 12 warps a CTA": (),
+                     "one warp a keypoint, 16 warps a CTA": ("-DORB_DESCRIBE_WARPS=16",),
+                     "one warp a keypoint, 8 warps a CTA": ("-DORB_DESCRIBE_WARPS=8",),
+                     "two warps a keypoint, 16 warps a CTA": ("-DORB_DESCRIBE_GROUP=2", "-DORB_DESCRIBE_WARPS=16")},
     "stereo_sad": {"8 blocks an SM": (), "registers as the compiler likes": ("-DSTEREO_SAD_MIN_BLOCKS=1",),
                    "6 blocks an SM": ("-DSTEREO_SAD_MIN_BLOCKS=6",)},
 }
@@ -3278,6 +3286,94 @@ def front_end_variants():
             print(f"{kernel} variant ({name}) at {shape} [{b}x{h}x{w}], N={b}x{n}: own device us "
                   f"{' / '.join(f'{x:.2f}' for x in t)} (torch.profiler, mean of 20 calls; in turns), same bits")
     print(json.dumps({"front_end_variants": rows}))
+
+
+# --front-end-split: the parts each source counts when built with
+# -D<NAME>_SPLIT=1 (csrc/orb_describe.cu's and csrc/stereo_sad.cu's Split).
+FRONT_END_SPLIT_PARTS = {
+    "orb_describe": ("tables and first tile", "tile wait", "row pass", "column pass", "moments and angle", "BRIEF"),
+    "stereo_sad": ("loads landed", "blend", "slides", "reduction and store"),
+}
+
+
+def front_end_split():
+    """``python3 chip_smoke.py --front-end-split``: both front-end sources
+    built with their split counters, one launch each at the point cell's
+    and the batched step's front_end_inputs after a warm-up: per keypoint,
+    lane 0's cycles in each part (summed over warps, over the keypoints);
+    per warp, keypoints, cycles and ns from its start to its end; the SM
+    clock those give; and the first start to the last end on the device's
+    clock beside the shipped build's own device time."""
+    import ctypes
+
+    import torch
+
+    from orb_line_slam_tpu_torch.ops import _build, describe, stereo_sad
+
+    phase_device()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for kernel in FRONT_END_SPLIT_PARTS:
+        so = _build.BUILD_DIR / f"lib{kernel}_split.so"
+        cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               f"-D{kernel.upper()}_SPLIT=1", "-shared", "-Xcompiler", "-fPIC", "-o", str(so),
+               str(_build.CSRC / f"{kernel}.cu")]
+        procs[kernel] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
+    libs = {}
+    for kernel, (proc, so) in procs.items():
+        _, stderr = proc.communicate()
+        check(proc.returncode == 0, f"nvcc failed on the split build of {kernel}:\n{stderr[-3000:]}")
+        lib = ctypes.CDLL(str(so))
+        fn = getattr(lib, f"{kernel}_launch")
+        fn.argtypes = [*(describe if kernel == "orb_describe" else stereo_sad)._ARGTYPES, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        read = getattr(lib, f"{kernel}_split")
+        read.argtypes, read.restype = [ctypes.c_void_p], ctypes.c_int
+        libs[kernel] = (fn, read)
+    dev = torch.device("cuda")
+    bands, rot = describe._kernel_tables_on(dev)
+    rows = {}
+    for kernel, shape, b, h, w, n in [s for s in front_end_shapes() if s[1].startswith("point cell")]:
+        args = front_end_inputs(kernel, b, h, w, n, FRONT_END_SEED)
+        fn, read = libs[kernel]
+        parts = FRONT_END_SPLIT_PARTS[kernel]
+        counts = (ctypes.c_ulonglong * (len(parts) + 6))()
+
+        def call():
+            if kernel == "orb_describe":
+                atlas, axy, delta = args
+                angle = torch.empty((b * n,), dtype=torch.float32, device=dev)
+                desc = torch.empty((b * n, 32), dtype=torch.uint8, device=dev)
+                _build.launch(fn, kernel, dev, atlas.data_ptr(), b, h, w, axy.data_ptr(), delta.data_ptr(), n,
+                              bands.data_ptr(), rot.data_ptr(), describe._INV_BIN, angle.data_ptr(), desc.data_ptr())
+                return angle, desc
+            atlas_l, axy_l, atlas_r, cx, cy = args
+            out = torch.empty((*axy_l.shape[:-1], stereo_sad.N_OFFSETS), dtype=torch.float32, device=dev)
+            _build.launch(fn, kernel, dev, atlas_l.data_ptr(), axy_l.data_ptr(), atlas_r.data_ptr(), cx.data_ptr(),
+                          cy.data_ptr(), h, w, n, b * n, out.data_ptr())
+            return out
+
+        want = outputs_hash(front_end_call(kernel, args)[0]())
+        check(outputs_hash(call()) == want, f"{kernel}'s split build at {shape} gives other bits than the shipped build")
+        torch.cuda.synchronize()
+        check(read(counts) == 0, f"{kernel}_split failed")
+        call()
+        torch.cuda.synchronize()
+        check(read(counts) == 0, f"{kernel}_split failed")
+        c = list(counts)
+        kp, warps, cycles, ns = c[len(parts)], c[len(parts) + 1], c[len(parts) + 2], c[len(parts) + 3]
+        span_us = (c[len(parts) + 5] - c[len(parts) + 4]) / 1e3
+        own = own_device_ms(front_end_call(kernel, args)[0], f"{kernel}_kernel", front_end_call(kernel, args)[1]) * 1e3
+        row = {"cycles_per_keypoint": {p: c[i] / kp for i, p in enumerate(parts)}, "keypoints": kp, "warps": warps,
+               "keypoints_per_warp": kp / warps, "warp_cycles_mean": cycles / warps, "warp_us_mean": ns / warps / 1e3,
+               "sm_ghz": cycles / ns, "span_us": span_us, "own_device_us": own}
+        rows[f"{kernel} ({shape}: [{b}x{h}x{w}], N={b}x{n})"] = row
+        print(f"{kernel} split at {shape} [{b}x{h}x{w}], N={b}x{n}: lane 0's cycles a keypoint "
+              + ", ".join(f"{p} {v:.0f}" for p, v in row["cycles_per_keypoint"].items())
+              + f"; {warps} warps, {kp / warps:.2f} keypoints a warp, a warp {cycles / warps:.0f} cycles = "
+              f"{ns / warps / 1e3:.2f} us from start to end (SM clock {cycles / ns:.3f} GHz); first start to last end "
+              f"{span_us:.2f} us on the device's clock, shipped build's own device time {own:.2f} us")
+    print(json.dumps({"front_end_split": rows}))
 
 
 def tree_probe(tree, out_path):
@@ -4011,6 +4107,9 @@ if __name__ == "__main__":
     elif sys.argv[1:] == ["--front-end-variants"]:
         sys.path.insert(0, ROOT)
         front_end_variants()
+    elif sys.argv[1:] == ["--front-end-split"]:
+        sys.path.insert(0, ROOT)
+        front_end_split()
     elif sys.argv[1:2] == ["--tree-probe"] and len(sys.argv) == 4:
         tree_probe(sys.argv[2], sys.argv[3])
     elif sys.argv[1:2] == ["--schedule-probe"] and len(sys.argv) == 5:

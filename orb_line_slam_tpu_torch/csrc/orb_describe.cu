@@ -61,7 +61,7 @@
 // it, not HBM.  What the design does about it:
 //   - persistent CTAs: the grid is the SM count times the CTAs an SM
 //     holds, asked of the occupancy API at the first launch on a device
-//     (one CTA of kWarps warps at the default 16).  A CTA loads the 21
+//     (one CTA of kWarps = 12 warps; 8 and 16 measured slower, PERF.md).  A CTA loads the 21
 //     band rows it uses and the 30 x 512 int16 rotated-pattern table into
 //     shared memory once, then its warps walk the keypoints with a stride;
 //   - one keypoint per warp (kGroup = 1; a group of two warps splitting
@@ -71,9 +71,11 @@
 //     the keypoint's warp;
 //   - the row reuse above, with a lane's tile column (row pass) or row of
 //     the row-blurred tile (column pass) in registers;
-//   - prefetch: while a warp computes keypoint k it copies the tile of its
-//     next keypoint into a second stage with 4-byte cp.async copies,
-//     committed as one group and awaited one keypoint later.  TMA does not
+//   - prefetch: two tile stages a warp.  Once the row pass has read
+//     keypoint k's tile into registers, the warp copies the tile of
+//     keypoint k + 2 strides into that stage with 4-byte cp.async copies,
+//     committed as one group and awaited at the start of that keypoint,
+//     so a copy has about one keypoint and a half to land.  TMA does not
 //     serve here: a tensor map needs a global row stride that is a
 //     multiple of 16 bytes (the point cell's atlas row is 1241 x 4 = 4,964
 //     bytes) and a tile's x0 is arbitrary;
@@ -94,10 +96,10 @@ extern __shared__ __align__(16) unsigned char orb_describe_smem[];
 #define ORB_DESCRIBE_GROUP 1
 #endif
 #ifndef ORB_DESCRIBE_WARPS
-#define ORB_DESCRIBE_WARPS 16
+#define ORB_DESCRIBE_WARPS 12
 #endif
-#ifndef ORB_DESCRIBE_PASS_LOOP
-#define ORB_DESCRIBE_PASS_LOOP 0
+#ifndef ORB_DESCRIBE_SPLIT
+#define ORB_DESCRIBE_SPLIT 0
 #endif
 
 namespace {
@@ -130,13 +132,12 @@ constexpr int kHalfPatch = 15;
 constexpr float kFixedScale = 16.0f;
 constexpr float kIcMinOffsetPx = 0.5f;
 constexpr int kGroup = ORB_DESCRIBE_GROUP;  // warps per keypoint
-constexpr int kWarps = ORB_DESCRIBE_WARPS;  // warps per CTA
+constexpr int kWarps = ORB_DESCRIBE_WARPS;  // warps per CTA; one CTA fits on an SM
 constexpr int kThreads = 32 * kWarps;
 constexpr int kGroups = kWarps / kGroup;    // keypoints in flight per CTA
 constexpr int kSpan = kTile / kGroup;       // rows (row pass) or columns (column pass) of a warp
 static_assert(kGroup == 1 || kGroup == 2, "a keypoint takes one warp or two");
 static_assert(kWarps % kGroup == 0 && (kGroup == 1 || kGroups <= 15), "named barriers 1..15, one per group");
-static_assert(!ORB_DESCRIBE_PASS_LOOP || kGroup == 1, "the pass loop takes one warp a keypoint");
 
 // Shared memory: the CTA's two tables, then per group two tile stages, the
 // row-blurred (then quantised) tile and, for a group of warps, its
@@ -169,12 +170,12 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
 }
 
-// Closes the group of copies issued since the last call and waits for all
-// groups but that one: the previous keypoint's prefetch has landed.
-__device__ __forceinline__ void commit_and_wait_previous() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
+// Closes the group of copies issued since the last call.
+__device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Waits for every closed group but the newest: the tile of the keypoint
+// at hand has landed, the next one may still be in flight.
+__device__ __forceinline__ void wait_all_but_newest() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // The keypoint's warps: __syncwarp for one, the group's named barrier for two.
 __device__ __forceinline__ void group_sync(int group) {
@@ -276,46 +277,61 @@ __device__ __forceinline__ void column_pass(const float* s_coef, const float (&a
   });
 }
 
-// Both passes through one copy of the blur's code (half the loop body's
-// instructions): pass 0 the rows (lane = tile column), pass 1 the columns
-// (lane = row of the row-blurred tile, quantised in place, and its
-// moments as column_pass takes them).
-__device__ __forceinline__ void both_passes(const float* s_coef, const float (&a0)[kUsed], const float* tile,
-                                            float* rows, int lane, float wmx, float w0x, float wpx, float wmy,
-                                            float w0y, float wpy, int& m10, int& m00) {
-  const int v = lane - kHalfPatch;
-#pragma unroll 1
-  for (int pass = 0; pass < 2; ++pass) {
-    float line[kTile];
-    if (pass == 0) {
-#pragma unroll
-      for (int r = 0; r < kTile; ++r) line[r] = tile[r * kTile + lane];
-    } else {
-      __syncwarp();
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) line[j] = rows[lane * kPitch + j];
-    }
-    float* out = pass ? rows + lane * kPitch : rows + lane;
-    const int step = pass ? 1 : kPitch;
-    blur_line<0>(s_coef, a0, line, pass ? wmx : wmy, pass ? w0x : w0y, pass ? wpx : wpy, [&](int i, float x) {
-      if (pass) {
-        const int q = __float2int_rn(__fmul_rn(x, kFixedScale));
-        x = __int_as_float(q);
-        const int u = i - kHalfPatch;
-        if (i <= 2 * kHalfPatch && lane <= 2 * kHalfPatch && u * u + v * v <= kHalfPatch * kHalfPatch) {
-          m10 += q * u;
-          m00 += q;
-        }
-      }
-      out[i * step] = x;
-    });
-  }
+// Where a warp's time goes (built with -DORB_DESCRIBE_SPLIT=1 only): lane
+// 0's cycles in each part, summed over the warps; then the keypoints, the
+// warps, their cycles and nanoseconds from start to end, and the first
+// start and last end on the device's clock (ns).
+constexpr int kSplitParts = 6;   // tables and first tile, tile wait, rows, columns, moments and angle, BRIEF
+constexpr int kSplitSlots = kSplitParts + 6;
+#if ORB_DESCRIBE_SPLIT && !defined(ORB_DESCRIBE_HOST)
+__device__ unsigned long long g_split[kSplitSlots];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
+struct Split {
+  unsigned long long part[kSplitParts] = {};
+  unsigned long long keypoints = 0;
+  long long t0 = 0, t = 0, ns0 = 0;
+  __device__ void start() {
+    t0 = t = clock64();
+    ns0 = global_ns();
+  }
+  __device__ void mark(int slot) {
+    __syncwarp();
+    const long long now = clock64();
+    part[slot] += now - t;
+    t = now;
+  }
+  __device__ void keypoint() { ++keypoints; }
+  __device__ void flush(int lane) {
+    if (lane != 0) return;
+    const long long ns = global_ns();
+    for (int i = 0; i < kSplitParts; ++i) atomicAdd(&g_split[i], part[i]);
+    atomicAdd(&g_split[kSplitParts], keypoints);
+    atomicAdd(&g_split[kSplitParts + 1], 1ull);
+    atomicAdd(&g_split[kSplitParts + 2], static_cast<unsigned long long>(clock64() - t0));
+    atomicAdd(&g_split[kSplitParts + 3], static_cast<unsigned long long>(ns - ns0));
+    atomicMin(&g_split[kSplitParts + 4], static_cast<unsigned long long>(ns0));
+    atomicMax(&g_split[kSplitParts + 5], static_cast<unsigned long long>(ns));
+  }
+};
+#else
+struct Split {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void keypoint() {}
+  __device__ __forceinline__ void flush(int) {}
+};
+#endif
 
 __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
     const float* __restrict__ atlas, int h, int w, const int* __restrict__ xy, const float* __restrict__ delta,
     int n_per_image, int total, const float* __restrict__ band, const short* __restrict__ rot, float inv_bin,
     float* __restrict__ angle, unsigned* __restrict__ desc) {
+  Split split;
+  split.start();
   unsigned char* smem = shared_base();
   float* s_coef = reinterpret_cast<float*>(smem);
   short* s_rot = reinterpret_cast<short*>(smem + kCoefBytes);
@@ -341,25 +357,16 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
     for (int r = gw * kSpan; r < (gw + 1) * kSpan; ++r) copy_async(stage + r * kTile + lane, src + static_cast<long long>(r) * w);
   };
 
-  int k = group * gridDim.x + blockIdx.x;
-  if (k < total) prefetch(k, xy[2 * k], xy[2 * k + 1], g_base);
-  commit_and_wait_previous();                // the first tile is a group of its own
-  // The next keypoint's coordinates and this one's offsets, a keypoint ahead.
-  int xn = 0, yn = 0;
-  float dx = 0.0f, dy = 0.0f;
-  if (k < total) {
-    dx = delta[2 * k];
-    dy = delta[2 * k + 1];
-  }
-  if (k + stride < total) {
-    xn = xy[2 * (k + stride)];
-    yn = xy[2 * (k + stride) + 1];
-  }
-
-  // The CTA's tables, once: the used taps of A0's edge rows and interior
-  // band and of Am's and Ap's edge rows, and the rotated pattern.
-  for (int t = threadIdx.x; t < kCoefRows * kCoefPitch; t += kThreads) {
-    const int row = t / kCoefPitch, o = t % kCoefPitch;
+  // Every load of the prologue first (the CTA's tables, the first two
+  // keypoints' coordinates and this one's offsets), then the first two
+  // tiles' copies, a group each, then the tables' stores: the tables' and
+  // the coordinates' round trips overlap.  The tables: the used taps of
+  // A0's edge rows and interior band and of Am's and Ap's edge rows, and
+  // the rotated pattern (16-byte loads).
+  static_assert(kCoefRows * kCoefPitch <= kThreads, "one coefficient a thread");
+  float coef = 0.0f;
+  if (threadIdx.x < kCoefRows * kCoefPitch) {
+    const int row = threadIdx.x / kCoefPitch, o = threadIdx.x % kCoefPitch;
     int i, first;
     if (row <= kA0Edges) {
       i = row == kA0Edges ? kA0InteriorFirst : edge_row(row, kA0InteriorFirst, kA0InteriorLast);
@@ -371,50 +378,83 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
       i = edge_row(row - kA0Edges - 1 - kAmEdges, kApReuseFirst, kApReuseLast);
       first = 2 * kBandTaps + kApTap0;
     }
-    s_coef[t] = o < kUsed ? band[i * kBandRow + first + o] : 0.0f;
+    if (o < kUsed) coef = band[i * kBandRow + first + o];
   }
-  for (int t = threadIdx.x; t < kBins * kPattern / 2; t += kThreads) {
-    reinterpret_cast<int*>(s_rot)[t] = reinterpret_cast<const int*>(rot)[t];
+  constexpr int kQuads = kRotBytes / 16;
+  constexpr int kPerThread = (kQuads + kThreads - 1) / kThreads;
+  int4 quads[kPerThread];
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int t = threadIdx.x + r * kThreads;
+    if (t < kQuads) quads[r] = reinterpret_cast<const int4*>(rot)[t];
+  }
+  int k = group * gridDim.x + blockIdx.x;
+  int x0 = 0, y0 = 0, x1 = 0, y1 = 0;
+  float dx = 0.0f, dy = 0.0f;
+  if (k < total) {
+    x0 = xy[2 * k];
+    y0 = xy[2 * k + 1];
+    dx = delta[2 * k];
+    dy = delta[2 * k + 1];
+  }
+  if (k + stride < total) {
+    x1 = xy[2 * (k + stride)];
+    y1 = xy[2 * (k + stride) + 1];
+  }
+  if (k < total) prefetch(k, x0, y0, g_base);
+  commit_copies();
+  if (k + stride < total) prefetch(k + stride, x1, y1, g_base + kStage);
+  commit_copies();
+  if (threadIdx.x < kCoefRows * kCoefPitch) s_coef[threadIdx.x] = coef;
+#pragma unroll
+  for (int r = 0; r < kPerThread; ++r) {
+    const int t = threadIdx.x + r * kThreads;
+    if (t < kQuads) reinterpret_cast<int4*>(s_rot)[t] = quads[r];
   }
   __syncthreads();
   float a0[kUsed];                           // A0's interior band, for every keypoint
 #pragma unroll
   for (int o = 0; o < kUsed; ++o) a0[o] = s_coef[kA0Edges * kCoefPitch + o];
+  split.mark(0);
 
+  // Tile k lands in stage it % 2; once the row pass has read it, the same
+  // stage takes the tile two keypoints on, so a copy has about a keypoint
+  // and a half to land.
   for (int it = 0; k < total; ++it, k += stride) {
     float* tile = g_base + (it & 1) * kStage;
-    const int kn = k + stride;
-    if (kn < total) prefetch(kn, xn, yn, g_base + ((it + 1) & 1) * kStage);
+    const int kn = k + stride, kf = k + 2 * stride;
     float dxn = 0.0f, dyn = 0.0f;
     if (kn < total) {
       dxn = delta[2 * kn];
       dyn = delta[2 * kn + 1];
     }
-    if (kn + stride < total) {
-      xn = xy[2 * (kn + stride)];
-      yn = xy[2 * (kn + stride) + 1];
+    int xf = 0, yf = 0;
+    if (kf < total) {
+      xf = xy[2 * kf];
+      yf = xy[2 * kf + 1];
     }
-    commit_and_wait_previous();
+    wait_all_but_newest();
     if (kGroup > 1) group_sync(group);       // the other warp's rows of the tile have landed
+    split.mark(1);
 
     const float wmx = fmaxf(-dx, 0.0f), w0x = 1.0f - fabsf(dx), wpx = fmaxf(dx, 0.0f);
     const float wmy = fmaxf(-dy, 0.0f), w0y = 1.0f - fabsf(dy), wpy = fmaxf(dy, 0.0f);
     int m10 = 0, m00 = 0;
-#if ORB_DESCRIBE_PASS_LOOP
-    both_passes(s_coef, a0, tile, rows, lane, wmx, w0x, wpx, wmy, w0y, wpy, m10, m00);
-#else
     if (gw == 0) {
       row_pass<0>(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
     } else {
       row_pass<kSpan * (kGroup - 1)>(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
     }
-    group_sync(group);
+    group_sync(group);                        // the tile is read: its stage takes tile kf
+    if (kf < total) prefetch(kf, xf, yf, tile);
+    commit_copies();
+    split.mark(2);
     if (gw == 0) {
       column_pass<0>(s_coef, a0, rows, lane, wmx, w0x, wpx, group, m10, m00);
     } else {
       column_pass<kSpan * (kGroup - 1)>(s_coef, a0, rows, lane, wmx, w0x, wpx, group, m10, m00);
     }
-#endif
+    split.mark(3);
     int m01 = warp_sum((lane - kHalfPatch) * m00);
     m10 = warp_sum(m10);
     m00 = warp_sum(m00);
@@ -454,6 +494,8 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
       bin = scratch[3 * kGroup];
     }
 
+    split.mark(4);
+
     // BRIEF: bit t = q[p2_t] > q[p1_t]; a ballot gives one 32-bit word,
     // whose little-endian bytes are the LSB-first packing.  Lane g of the
     // warp keeps the warp's word g; the words go out as one row.
@@ -471,9 +513,12 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
     }
     if (lane < kWords / kGroup) desc[static_cast<long long>(k) * kWords + gw * (kWords / kGroup) + lane] = word;
     group_sync(group);                        // q read: the next keypoint may overwrite it
+    split.mark(5);
+    split.keypoint();
     dx = dxn;
     dy = dyn;
   }
+  split.flush(lane);
 }
 
 }  // namespace
@@ -481,7 +526,7 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
 // atlas: float32 [b, h, w] contiguous; xy: int32 [b, n, 2] (x, y) atlas
 // keypoints; delta: float32 [b, n, 2] sub-pixel offsets; band: float32
 // [32, 28] band rows of the shift+blur matrices (band_rows()); rot: int16
-// [30, 512] flat tile indices of the rotated test points, 4-byte aligned;
+// [30, 512] flat tile indices of the rotated test points, 16-byte aligned;
 // inv_bin: 1 / (2 pi / 30); angle: float32 [b * n]; desc: uint8 [b * n,
 // 32], 4-byte aligned.  Launches min(SMs x resident CTAs, b * n)
 // persistent CTAs on `stream` (the resident count from the occupancy API,
@@ -515,3 +560,14 @@ extern "C" int orb_describe_launch(const float* atlas, int b, int h, int w, cons
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#if ORB_DESCRIBE_SPLIT
+// The split counters since the last call (kSplitSlots of them), reset.
+extern "C" int orb_describe_split(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, sizeof(g_split));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned long long reset[kSplitSlots] = {};
+  reset[kSplitSlots - 2] = ~0ull;              // the first start: a minimum
+  return static_cast<int>(cudaMemcpyToSymbol(g_split, reset, sizeof(reset)));
+}
+#endif

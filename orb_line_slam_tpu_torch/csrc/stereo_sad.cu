@@ -83,6 +83,9 @@ constexpr int kWarps = 4;                      // keypoints per block; 1, 2 and 
 // that a batched step's 8,000 warps take two waves (the compiler's own
 // choice, 82, gave 20 warps an SM; 12 and 16 blocks spill).
 constexpr int kMinBlocks = STEREO_SAD_MIN_BLOCKS;
+#ifndef STEREO_SAD_SPLIT
+#define STEREO_SAD_SPLIT 0
+#endif
 
 #ifndef STEREO_SAD_HOST
 // The block's shared memory: per warp the raw right window, then the strip.
@@ -90,6 +93,55 @@ __device__ __forceinline__ unsigned char* shared_base() {
   __shared__ __align__(16) unsigned char s[kWarps * (kRaw + kStrip) * 4];
   return s;
 }
+#endif
+
+// Where a warp's time goes (built with -DSTEREO_SAD_SPLIT=1 only): lane
+// 0's cycles in each part, summed over the warps; then the keypoints, the
+// warps, their cycles and nanoseconds from start to end, and the first
+// start and last end on the device's clock (ns).
+constexpr int kSplitParts = 4;   // loads landed, blend, slides, reduction and store
+constexpr int kSplitSlots = kSplitParts + 6;
+#if STEREO_SAD_SPLIT && !defined(STEREO_SAD_HOST)
+__device__ unsigned long long g_split[kSplitSlots];
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+struct Split {
+  unsigned long long part[kSplitParts] = {};
+  unsigned long long keypoints = 0;
+  long long t0 = 0, t = 0, ns0 = 0;
+  __device__ void start() {
+    t0 = t = clock64();
+    ns0 = global_ns();
+  }
+  __device__ void mark(int slot) {
+    __syncwarp();
+    const long long now = clock64();
+    part[slot] += now - t;
+    t = now;
+  }
+  __device__ void keypoint() { ++keypoints; }
+  __device__ void flush(int lane) {
+    if (lane != 0) return;
+    const long long ns = global_ns();
+    for (int i = 0; i < kSplitParts; ++i) atomicAdd(&g_split[i], part[i]);
+    atomicAdd(&g_split[kSplitParts], keypoints);
+    atomicAdd(&g_split[kSplitParts + 1], 1ull);
+    atomicAdd(&g_split[kSplitParts + 2], static_cast<unsigned long long>(clock64() - t0));
+    atomicAdd(&g_split[kSplitParts + 3], static_cast<unsigned long long>(ns - ns0));
+    atomicMin(&g_split[kSplitParts + 4], static_cast<unsigned long long>(ns0));
+    atomicMax(&g_split[kSplitParts + 5], static_cast<unsigned long long>(ns));
+  }
+};
+#else
+struct Split {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void keypoint() {}
+  __device__ __forceinline__ void flush(int) {}
+};
 #endif
 
 // A lane that holds slot s after the reduce-scatter: the lane's bits 4,
@@ -103,6 +155,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) stereo_sad_kernel(
     const float* __restrict__ atlas_l, const int* __restrict__ xy_l, const float* __restrict__ atlas_r,
     const float* __restrict__ cx, const float* __restrict__ cy, int h, int w, int n, int total,
     float* __restrict__ sad) {
+  Split split;
+  split.start();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   float* raw = reinterpret_cast<float*>(shared_base()) + warp * (kRaw + kStrip);
@@ -148,6 +202,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) stereo_sad_kernel(
       if (e < kRaw) raw[e] = right[i];
     }
     __syncwarp();
+    split.mark(0);
 #pragma unroll
     for (int i = 0; i < kStripPerLane; ++i) {
       const int e = lane + 32 * i;
@@ -162,6 +217,7 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) stereo_sad_kernel(
       }
     }
     __syncwarp();
+    split.mark(1);
 
     // The lane's partial of each slide: its elements lane, lane + 32, ...
     // in ascending order, the eleven slides as independent chains.
@@ -183,6 +239,8 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) stereo_sad_kernel(
       }
     }
 
+    split.mark(2);
+
     // Reduce-scatter: at distance m a lane keeps the upper half of its
     // slots if its m bit is set, else the lower, and adds its partner's
     // copy of the half it keeps.
@@ -199,7 +257,10 @@ __global__ void __launch_bounds__(32 * kWarps, kMinBlocks) stereo_sad_kernel(
     acc[0] = __fadd_rn(acc[0], __shfl_xor_sync(0xffffffffu, acc[0], 1));
     const float mine = __shfl_sync(0xffffffffu, acc[0], holder(lane < kOffsets ? lane : 0));
     if (lane < kOffsets) sad[static_cast<long long>(k) * kOffsets + lane] = mine;
+    split.mark(3);
+    split.keypoint();
   }
+  split.flush(lane);
 }
 
 }  // namespace
@@ -216,3 +277,14 @@ extern "C" int stereo_sad_launch(const float* atlas_l, const int* xy_l, const fl
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+#if STEREO_SAD_SPLIT
+// The split counters since the last call (kSplitSlots of them), reset.
+extern "C" int stereo_sad_split(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_split, sizeof(g_split));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  unsigned long long reset[kSplitSlots] = {};
+  reset[kSplitSlots - 2] = ~0ull;              // the first start: a minimum
+  return static_cast<int>(cudaMemcpyToSymbol(g_split, reset, sizeof(reset)));
+}
+#endif

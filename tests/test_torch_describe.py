@@ -304,6 +304,7 @@ using std::max;
 using std::min;
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
 struct float4 { float x, y, z, w; };
+struct alignas(16) int4 { int x, y, z, w; };
 thread_local Dim3 threadIdx, blockIdx, gridDim;
 // A warp: its barrier and two exchange buffers, used in turn (a thread
 // writes one only after all have passed the barrier that follows their
@@ -332,7 +333,8 @@ inline void group_sync(int group) { t_cta->groups[group]->arrive_and_wait(); }
 inline unsigned char* shared_base() { return t_cta->smem.data(); }
 // The asynchronous copy as a plain copy, and its wait as nothing.
 inline void copy_async(float* dst, const float* src) { *dst = *src; }
-inline void commit_and_wait_previous() {}
+inline void commit_copies() {}
+inline void wait_all_but_newest() {}
 template <class T> unsigned char* host_post(T v) {
   HostWarp& w = t_cta->warps[threadIdx.x >> 5];
   unsigned char* ex = w.ex[t_phase];
@@ -437,16 +439,11 @@ def _host_build(tmp_path_factory, name, flags=()):
     return lib
 
 
-_DESCRIBE_BUILDS = {"one warp": (), "two warps": ("-DORB_DESCRIBE_GROUP=2",),
-                    "pass loop": ("-DORB_DESCRIBE_PASS_LOOP=1",)}
-
-
-@pytest.fixture(scope="module", params=list(_DESCRIBE_BUILDS))
+@pytest.fixture(scope="module", params=["one warp", "two warps"])
 def host_describe(request, tmp_path_factory):
     """orb_describe.cu for the host: one keypoint per warp (as built for
-    the card), per group of two warps (-DORB_DESCRIBE_GROUP=2), or both
-    passes through one copy of the blur (-DORB_DESCRIBE_PASS_LOOP=1)."""
-    flags = _DESCRIBE_BUILDS[request.param]
+    the card) or per group of two warps (-DORB_DESCRIBE_GROUP=2)."""
+    flags = () if request.param == "one warp" else ("-DORB_DESCRIBE_GROUP=2",)
     lib = _host_build(tmp_path_factory, "orb_describe", flags)
     lib.host_launch.argtypes = [*describe._ARGTYPES, ctypes.c_int]
     return lib
