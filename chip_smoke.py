@@ -212,10 +212,8 @@ profiled kernels per frame side by side; it also hashes orb_describe's
 and stereo_sad's outputs on fixed seeded inputs at phase 3's nine shapes
 in each process, fails unless every hash is the same, and prints the
 two kernels' own device times side by side.  ``python3 chip_smoke.py
---front-end-variants`` times build options of the two front-end
-sources (warps a CTA, two warps a keypoint, the SAD's register cap) in
-turns, their bits held to the shipped build's; ``--front-end-split``
-prints where a warp's cycles go in each (split counters built in).  ``python3 chip_smoke.py
+--front-end-split`` prints where a warp's cycles go in each of the two
+(their split counters built in).  ``python3 chip_smoke.py
 --schedule-probe DIR N OUT`` repeats phases 11 (a) and 14 (a) N times
 through the package at DIR and prints how their ATEs and the deferred
 BAs' lags repeat.  ``python3 chip_smoke.py --pose-split [DIR]`` splits
@@ -3186,108 +3184,6 @@ def front_end_probe():
     return out
 
 
-# --front-end-variants: build options of the two front-end sources, each
-# timed beside the build that ships (the first of each).
-FRONT_END_VARIANTS = {
-    "orb_describe": {"one warp a keypoint, 12 warps a CTA": (),
-                     "one warp a keypoint, 16 warps a CTA": ("-DORB_DESCRIBE_WARPS=16",),
-                     "one warp a keypoint, 8 warps a CTA": ("-DORB_DESCRIBE_WARPS=8",),
-                     "two warps a keypoint, 16 warps a CTA": ("-DORB_DESCRIBE_GROUP=2", "-DORB_DESCRIBE_WARPS=16")},
-    "stereo_sad": {"8 blocks an SM": (), "registers as the compiler likes": ("-DSTEREO_SAD_MIN_BLOCKS=1",),
-                   "6 blocks an SM": ("-DSTEREO_SAD_MIN_BLOCKS=6",)},
-}
-
-
-def sass_histogram(so):
-    """Static count of each opcode in the library's kernels (cuobjdump)."""
-    import collections
-    import re
-
-    from orb_line_slam_tpu_torch.ops import _build
-
-    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    out = subprocess.run([tool, "-sass", str(so)], capture_output=True, text=True, timeout=120)
-    check(out.returncode == 0, f"cuobjdump failed on {so}: {out.stderr[-500:]}")
-    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", out.stdout)
-    return collections.Counter(ops)
-
-
-def front_end_variants():
-    """``python3 chip_smoke.py --front-end-variants``: each front-end
-    source built as shipped and with the options of FRONT_END_VARIANTS,
-    each called through its own library on the point cell's and the
-    batched step's front_end_inputs: the outputs must be the shipped
-    build's bits; own device us of each, in turns (shipped, variants,
-    variants reversed, shipped), ptxas' report and the static count of
-    each opcode of the shipped build."""
-    import ctypes
-    import types
-
-    import torch
-
-    from orb_line_slam_tpu_torch.ops import _build, describe, stereo_sad
-
-    phase_device()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for kernel, variants in FRONT_END_VARIANTS.items():
-        for i, (name, flags) in enumerate(variants.items()):
-            so = _build.BUILD_DIR / f"lib{kernel}_variant{i}.so"
-            cmd = [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xptxas", "-v",
-                   *flags, "-shared", "-Xcompiler", "-fPIC", "-o", str(so), str(_build.CSRC / f"{kernel}.cu")]
-            procs[kernel, name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), so)
-    libs = {}
-    for (kernel, name), (proc, so) in procs.items():
-        stdout, stderr = proc.communicate()
-        check(proc.returncode == 0, f"nvcc failed on the {name} build of {kernel}:\n{stderr[-3000:]}")
-        fn = getattr(ctypes.CDLL(str(so)), f"{kernel}_launch")
-        fn.argtypes = [*(describe if kernel == "orb_describe" else stereo_sad)._ARGTYPES, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        usage = [ln.split(":", 1)[-1].strip() for ln in (stdout + stderr).splitlines() if "Used" in ln or "spill" in ln]
-        print(f"{kernel} variant ({name}): ptxas {'; '.join(usage)}")
-        libs[kernel, name] = fn
-        if name == next(iter(FRONT_END_VARIANTS[kernel])):
-            hist = sass_histogram(so)
-            print(f"{kernel} as shipped: {sum(hist.values())} SASS instructions, by opcode "
-                  + json.dumps(dict(hist.most_common(24))))
-    dev = torch.device("cuda")
-    bands, rot = describe._kernel_tables_on(dev)
-    rows = {}
-    shapes = [s for s in front_end_shapes() if s[1].startswith("point cell")]
-    for kernel, shape, b, h, w, n in shapes:
-        args = front_end_inputs(kernel, b, h, w, n, FRONT_END_SEED)
-        counter = types.SimpleNamespace(launches=0)
-
-        def call(fn):
-            if kernel == "orb_describe":
-                atlas, axy, delta = args
-                angle = torch.empty((b * n,), dtype=torch.float32, device=dev)
-                desc = torch.empty((b * n, 32), dtype=torch.uint8, device=dev)
-                _build.launch(fn, kernel, dev, atlas.data_ptr(), b, h, w, axy.data_ptr(), delta.data_ptr(), n,
-                              bands.data_ptr(), rot.data_ptr(), describe._INV_BIN, angle.data_ptr(), desc.data_ptr())
-                out = (angle, desc)
-            else:
-                atlas_l, axy_l, atlas_r, cx, cy = args
-                out = torch.empty((*axy_l.shape[:-1], stereo_sad.N_OFFSETS), dtype=torch.float32, device=dev)
-                _build.launch(fn, kernel, dev, atlas_l.data_ptr(), axy_l.data_ptr(), atlas_r.data_ptr(), cx.data_ptr(),
-                              cy.data_ptr(), h, w, n, b * n, out.data_ptr())
-            counter.launches += 1
-            return out
-
-        want = outputs_hash(front_end_call(kernel, args)[0]())
-        names = list(FRONT_END_VARIANTS[kernel])
-        times = {name: [] for name in names}
-        for name in names + names[::-1]:
-            fn = libs[kernel, name]
-            check(outputs_hash(call(fn)) == want, f"{kernel} variant ({name}) at {shape} gives other bits than the shipped build")
-            times[name].append(own_device_ms(lambda: call(fn), f"{kernel}_kernel", counter) * 1e3)
-        rows[f"{kernel} ({shape}: [{b}x{h}x{w}], N={b}x{n})"] = times
-        for name, t in times.items():
-            print(f"{kernel} variant ({name}) at {shape} [{b}x{h}x{w}], N={b}x{n}: own device us "
-                  f"{' / '.join(f'{x:.2f}' for x in t)} (torch.profiler, mean of 20 calls; in turns), same bits")
-    print(json.dumps({"front_end_variants": rows}))
-
-
 # --front-end-split: the parts each source counts when built with
 # -D<NAME>_SPLIT=1 (csrc/orb_describe.cu's and csrc/stereo_sad.cu's Split).
 FRONT_END_SPLIT_PARTS = {
@@ -3353,8 +3249,9 @@ def front_end_split():
                           cy.data_ptr(), h, w, n, b * n, out.data_ptr())
             return out
 
-        want = outputs_hash(front_end_call(kernel, args)[0]())
-        check(outputs_hash(call()) == want, f"{kernel}'s split build at {shape} gives other bits than the shipped build")
+        shipped, module = front_end_call(kernel, args)
+        check(outputs_hash(call()) == outputs_hash(shipped()),
+              f"{kernel}'s split build at {shape} gives other bits than the shipped build")
         torch.cuda.synchronize()
         check(read(counts) == 0, f"{kernel}_split failed")
         call()
@@ -3363,7 +3260,7 @@ def front_end_split():
         c = list(counts)
         kp, warps, cycles, ns = c[len(parts)], c[len(parts) + 1], c[len(parts) + 2], c[len(parts) + 3]
         span_us = (c[len(parts) + 5] - c[len(parts) + 4]) / 1e3
-        own = own_device_ms(front_end_call(kernel, args)[0], f"{kernel}_kernel", front_end_call(kernel, args)[1]) * 1e3
+        own = own_device_ms(shipped, f"{kernel}_kernel", module) * 1e3
         row = {"cycles_per_keypoint": {p: c[i] / kp for i, p in enumerate(parts)}, "keypoints": kp, "warps": warps,
                "keypoints_per_warp": kp / warps, "warp_cycles_mean": cycles / warps, "warp_us_mean": ns / warps / 1e3,
                "sm_ghz": cycles / ns, "span_us": span_us, "own_device_us": own}
@@ -3372,7 +3269,8 @@ def front_end_split():
               + ", ".join(f"{p} {v:.0f}" for p, v in row["cycles_per_keypoint"].items())
               + f"; {warps} warps, {kp / warps:.2f} keypoints a warp, a warp {cycles / warps:.0f} cycles = "
               f"{ns / warps / 1e3:.2f} us from start to end (SM clock {cycles / ns:.3f} GHz); first start to last end "
-              f"{span_us:.2f} us on the device's clock, shipped build's own device time {own:.2f} us")
+              f"{span_us:.2f} us on the device's clock (the counters' own atomics included), shipped build's own "
+              f"device time {own:.2f} us")
     print(json.dumps({"front_end_split": rows}))
 
 
@@ -4104,9 +4002,6 @@ if __name__ == "__main__":
         endurance_long()
     elif sys.argv[1:2] == ["--compare-parent"] and len(sys.argv) == 3:
         compare_parent(sys.argv[2])
-    elif sys.argv[1:] == ["--front-end-variants"]:
-        sys.path.insert(0, ROOT)
-        front_end_variants()
     elif sys.argv[1:] == ["--front-end-split"]:
         sys.path.insert(0, ROOT)
         front_end_split()

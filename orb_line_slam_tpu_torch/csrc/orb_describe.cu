@@ -61,14 +61,14 @@
 // it, not HBM.  What the design does about it:
 //   - persistent CTAs: the grid is the SM count times the CTAs an SM
 //     holds, asked of the occupancy API at the first launch on a device
-//     (one CTA of kWarps = 12 warps; 8 and 16 measured slower, PERF.md).  A CTA loads the 21
-//     band rows it uses and the 30 x 512 int16 rotated-pattern table into
-//     shared memory once, then its warps walk the keypoints with a stride;
-//   - one keypoint per warp (kGroup = 1; a group of two warps splitting
-//     the rows and columns builds with -DORB_DESCRIBE_GROUP=2 and was
-//     measured, PERF.md), with __syncwarp (or the group's named barrier)
-//     and no __syncthreads per keypoint; moments, angle and bin stay with
-//     the keypoint's warp;
+//     (one CTA of kWarps = 12 warps; 8 and 16 measured slower, PERF.md).
+//     A CTA loads the 21 band rows it uses and the 30 x 512 int16
+//     rotated-pattern table into shared memory once, then its warps walk
+//     the keypoints with a stride;
+//   - one keypoint per warp (a group of two warps splitting the rows and
+//     columns, with a named barrier, was measured slower: PERF.md), with
+//     __syncwarp and no __syncthreads per keypoint; moments, angle and bin
+//     stay with the keypoint's warp;
 //   - the row reuse above, with a lane's tile column (row pass) or row of
 //     the row-blurred tile (column pass) in registers;
 //   - prefetch: two tile stages a warp.  Once the row pass has read
@@ -92,12 +92,6 @@
 extern __shared__ __align__(16) unsigned char orb_describe_smem[];
 #endif
 
-#ifndef ORB_DESCRIBE_GROUP
-#define ORB_DESCRIBE_GROUP 1
-#endif
-#ifndef ORB_DESCRIBE_WARPS
-#define ORB_DESCRIBE_WARPS 12
-#endif
 #ifndef ORB_DESCRIBE_SPLIT
 #define ORB_DESCRIBE_SPLIT 0
 #endif
@@ -131,23 +125,16 @@ constexpr int kWords = 8;                   // 256 bits
 constexpr int kHalfPatch = 15;
 constexpr float kFixedScale = 16.0f;
 constexpr float kIcMinOffsetPx = 0.5f;
-constexpr int kGroup = ORB_DESCRIBE_GROUP;  // warps per keypoint
-constexpr int kWarps = ORB_DESCRIBE_WARPS;  // warps per CTA; one CTA fits on an SM
+constexpr int kWarps = 12;                  // a CTA, one keypoint a warp; one CTA fits on an SM
 constexpr int kThreads = 32 * kWarps;
-constexpr int kGroups = kWarps / kGroup;    // keypoints in flight per CTA
-constexpr int kSpan = kTile / kGroup;       // rows (row pass) or columns (column pass) of a warp
-static_assert(kGroup == 1 || kGroup == 2, "a keypoint takes one warp or two");
-static_assert(kWarps % kGroup == 0 && (kGroup == 1 || kGroups <= 15), "named barriers 1..15, one per group");
 
-// Shared memory: the CTA's two tables, then per group two tile stages, the
-// row-blurred (then quantised) tile and, for a group of warps, its
-// partial moments and bin.
+// Shared memory: the CTA's two tables, then per warp two tile stages and
+// the row-blurred (then quantised) tile.
 constexpr int kCoefBytes = kCoefRows * kCoefPitch * 4;
 constexpr int kRotBytes = kBins * kPattern * 2;
 constexpr int kStage = kTile * kTile;
-constexpr int kScratch = kGroup > 1 ? 16 : 0;
-constexpr int kGroupFloats = 2 * kStage + kTile * kPitch + kScratch;
-constexpr int kSharedBytes = kCoefBytes + kRotBytes + kGroups * kGroupFloats * 4;
+constexpr int kWarpFloats = 2 * kStage + kTile * kPitch;
+constexpr int kSharedBytes = kCoefBytes + kRotBytes + kWarps * kWarpFloats * 4;
 static_assert(kSharedBytes <= 232448, "227 KB a block on Hopper");
 
 // Edge row i of a matrix whose rows [first, last] are taken elsewhere:
@@ -176,15 +163,6 @@ __device__ __forceinline__ void commit_copies() { asm volatile("cp.async.commit_
 // Waits for every closed group but the newest: the tile of the keypoint
 // at hand has landed, the next one may still be in flight.
 __device__ __forceinline__ void wait_all_but_newest() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
-// The keypoint's warps: __syncwarp for one, the group's named barrier for two.
-__device__ __forceinline__ void group_sync(int group) {
-  if (kGroup == 1) {
-    __syncwarp();
-  } else {
-    asm volatile("bar.sync %0, %1;" ::"r"(1 + group), "n"(32 * kGroup) : "memory");
-  }
-}
 #endif
 
 // wm * a + w0 * b + wp * c as three tensor operations round it.
@@ -208,22 +186,20 @@ __device__ __forceinline__ float band_dot(const Coef& coef, int tap0, int i, con
   return acc;
 }
 
-// One blur pass over the outputs [I0, I0 + kSpan) of this lane's line:
-// out[i] = wm (Am line)[i] + w0 (A0 line)[i] + wp (Ap line)[i], Am's and
-// Ap's interior rows read off A0's products.  sink(i, out[i]) takes each.
-template <int I0, class Sink>
+// One blur pass over this lane's line: out[i] = wm (Am line)[i] + w0 (A0
+// line)[i] + wp (Ap line)[i], Am's and Ap's interior rows read off A0's
+// products.  sink(i, out[i]) takes each.
+template <class Sink>
 __device__ __forceinline__ void blur_line(const float* s_coef, const float (&a0)[kUsed], const float (&line)[kTile],
                                           float wm, float w0, float wp, Sink sink) {
-  constexpr int lo = I0 > 0 ? I0 - 1 : 0;
-  constexpr int hi = I0 + kSpan < kTile ? I0 + kSpan + 1 : kTile;
   float p0[kTile];
 #pragma unroll
-  for (int i = lo; i < hi; ++i) {
+  for (int i = 0; i < kTile; ++i) {
     p0[i] = i >= kA0InteriorFirst && i <= kA0InteriorLast ? band_dot(a0, kA0Tap0, i, line)
                                                           : band_dot(s_coef + kCoefPitch * a0_slot(i), kA0Tap0, i, line);
   }
 #pragma unroll
-  for (int i = I0; i < I0 + kSpan; ++i) {
+  for (int i = 0; i < kTile; ++i) {
     const float am = i >= kAmReuseFirst && i <= kAmReuseLast
                          ? p0[i > 0 ? i - 1 : 0]
                          : band_dot(s_coef + kCoefPitch * am_slot(i), kAmTap0, i, line);
@@ -240,33 +216,27 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// Rows: lane = tile column c; ty[i][c] for this warp's rows i.
-template <int I0>
+// Rows: lane = tile column c; ty[i][c] for every row i.
 __device__ __forceinline__ void row_pass(const float* s_coef, const float (&a0)[kUsed], const float* tile,
                                          float* rows, int lane, float wm, float w0, float wp) {
-  constexpr int lo = I0 > 4 ? I0 - 4 : 0;
-  constexpr int hi = I0 + kSpan + 4 < kTile ? I0 + kSpan + 4 : kTile;
   float line[kTile];
 #pragma unroll
-  for (int r = lo; r < hi; ++r) line[r] = tile[r * kTile + lane];
-  blur_line<I0>(s_coef, a0, line, wm, w0, wp, [&](int i, float v) { rows[i * kPitch + lane] = v; });
+  for (int r = 0; r < kTile; ++r) line[r] = tile[r * kTile + lane];
+  blur_line(s_coef, a0, line, wm, w0, wp, [&](int i, float v) { rows[i * kPitch + lane] = v; });
 }
 
-// Columns: lane = row r; tb[r][i] for this warp's columns i, quantised in
-// place, and the disk's moments of those outputs: (sum q u, sum q) with
-// u = i - 15 (m01 is v times the sum, v = r - 15).
-template <int I0>
+// Columns: lane = row r; tb[r][i] for every column i, quantised in place
+// (the lane has read its row into registers), and the disk's moments of
+// the row: (sum q u, sum q) with u = i - 15 (m01 is v times the sum, v =
+// r - 15).
 __device__ __forceinline__ void column_pass(const float* s_coef, const float (&a0)[kUsed], float* rows, int lane,
-                                            float wm, float w0, float wp, int group, int& m10, int& m00) {
-  constexpr int lo = I0 > 4 ? I0 - 4 : 0;
-  constexpr int hi = I0 + kSpan + 4 < kTile ? I0 + kSpan + 4 : kTile;
+                                            float wm, float w0, float wp, int& m10, int& m00) {
   float line[kTile];
   float* mine = rows + lane * kPitch;
 #pragma unroll
-  for (int j = lo; j < hi; ++j) line[j] = mine[j];
-  if (kGroup > 1) group_sync(group);        // the other warp has read what this one overwrites
+  for (int j = 0; j < kTile; ++j) line[j] = mine[j];
   const int v = lane - kHalfPatch;
-  blur_line<I0>(s_coef, a0, line, wm, w0, wp, [&](int i, float x) {
+  blur_line(s_coef, a0, line, wm, w0, wp, [&](int i, float x) {
     const int q = __float2int_rn(__fmul_rn(x, kFixedScale));
     mine[i] = __int_as_float(q);
     const int u = i - kHalfPatch;
@@ -337,24 +307,21 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
   short* s_rot = reinterpret_cast<short*>(smem + kCoefBytes);
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int group = warp / kGroup;
-  const int gw = warp % kGroup;              // this warp's place in its group
-  float* g_base = reinterpret_cast<float*>(smem + kCoefBytes + kRotBytes) + group * kGroupFloats;
-  float* rows = g_base + 2 * kStage;
-  int* scratch = reinterpret_cast<int*>(rows + kTile * kPitch);
+  float* stages = reinterpret_cast<float*>(smem + kCoefBytes + kRotBytes) + warp * kWarpFloats;
+  float* rows = stages + 2 * kStage;
   const long long image = static_cast<long long>(h) * w;
   // Keypoint k goes to CTA k mod grid, so that a launch with fewer
   // keypoints than warps spreads them over every SM.
-  const int stride = gridDim.x * kGroups;
+  const int stride = gridDim.x * kWarps;
 
-  // This warp's share of a keypoint's tile (rows [gw * kSpan, + kSpan),
-  // lane = column) into a stage.
+  // A keypoint's tile into a stage, lane = column: each lane copies, and
+  // later reads, its own column only.
   auto prefetch = [&](int k, int x, int y, float* stage) {
     const int x0 = min(max(x - kHalfPatch, 0), w - kTile);
     const int y0 = min(max(y - kHalfPatch, 0), h - kTile);
     const float* src = atlas + (k / n_per_image) * image + static_cast<long long>(y0) * w + x0 + lane;
 #pragma unroll 4
-    for (int r = gw * kSpan; r < (gw + 1) * kSpan; ++r) copy_async(stage + r * kTile + lane, src + static_cast<long long>(r) * w);
+    for (int r = 0; r < kTile; ++r) copy_async(stage + r * kTile + lane, src + static_cast<long long>(r) * w);
   };
 
   // Every load of the prologue first (the CTA's tables, the first two
@@ -388,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
     const int t = threadIdx.x + r * kThreads;
     if (t < kQuads) quads[r] = reinterpret_cast<const int4*>(rot)[t];
   }
-  int k = group * gridDim.x + blockIdx.x;
+  int k = warp * gridDim.x + blockIdx.x;
   int x0 = 0, y0 = 0, x1 = 0, y1 = 0;
   float dx = 0.0f, dy = 0.0f;
   if (k < total) {
@@ -401,9 +368,9 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
     x1 = xy[2 * (k + stride)];
     y1 = xy[2 * (k + stride) + 1];
   }
-  if (k < total) prefetch(k, x0, y0, g_base);
+  if (k < total) prefetch(k, x0, y0, stages);
   commit_copies();
-  if (k + stride < total) prefetch(k + stride, x1, y1, g_base + kStage);
+  if (k + stride < total) prefetch(k + stride, x1, y1, stages + kStage);
   commit_copies();
   if (threadIdx.x < kCoefRows * kCoefPitch) s_coef[threadIdx.x] = coef;
 #pragma unroll
@@ -421,7 +388,7 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
   // stage takes the tile two keypoints on, so a copy has about a keypoint
   // and a half to land.
   for (int it = 0; k < total; ++it, k += stride) {
-    float* tile = g_base + (it & 1) * kStage;
+    float* tile = stages + (it & 1) * kStage;
     const int kn = k + stride, kf = k + 2 * stride;
     float dxn = 0.0f, dyn = 0.0f;
     if (kn < total) {
@@ -434,76 +401,46 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
       yf = xy[2 * kf + 1];
     }
     wait_all_but_newest();
-    if (kGroup > 1) group_sync(group);       // the other warp's rows of the tile have landed
     split.mark(1);
 
     const float wmx = fmaxf(-dx, 0.0f), w0x = 1.0f - fabsf(dx), wpx = fmaxf(dx, 0.0f);
     const float wmy = fmaxf(-dy, 0.0f), w0y = 1.0f - fabsf(dy), wpy = fmaxf(dy, 0.0f);
     int m10 = 0, m00 = 0;
-    if (gw == 0) {
-      row_pass<0>(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
-    } else {
-      row_pass<kSpan * (kGroup - 1)>(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
-    }
-    group_sync(group);                        // the tile is read: its stage takes tile kf
+    row_pass(s_coef, a0, tile, rows, lane, wmy, w0y, wpy);
+    __syncwarp();                             // the tile is read: its stage takes tile kf
     if (kf < total) prefetch(kf, xf, yf, tile);
     commit_copies();
     split.mark(2);
-    if (gw == 0) {
-      column_pass<0>(s_coef, a0, rows, lane, wmx, w0x, wpx, group, m10, m00);
-    } else {
-      column_pass<kSpan * (kGroup - 1)>(s_coef, a0, rows, lane, wmx, w0x, wpx, group, m10, m00);
-    }
+    column_pass(s_coef, a0, rows, lane, wmx, w0x, wpx, m10, m00);
     split.mark(3);
-    int m01 = warp_sum((lane - kHalfPatch) * m00);
+    const int m01 = warp_sum((lane - kHalfPatch) * m00);
     m10 = warp_sum(m10);
     m00 = warp_sum(m00);
-    if (kGroup > 1 && lane == 0) {
-      scratch[3 * gw] = m10;
-      scratch[3 * gw + 1] = m01;
-      scratch[3 * gw + 2] = m00;
-    }
-    group_sync(group);                        // q complete (and the partial moments)
+    __syncwarp();                             // q complete
 
     int bin = 0;
-    if (gw == 0) {
-      if (kGroup > 1) {
-        m10 = m01 = m00 = 0;
-        for (int g = 0; g < kGroup; ++g) {
-          m10 += scratch[3 * g];
-          m01 += scratch[3 * g + 1];
-          m00 += scratch[3 * g + 2];
-        }
-      }
-      if (lane == 0) {
-        const float f10 = __int2float_rn(m10);
-        const float f01 = __int2float_rn(m01);
-        const float f00 = __int2float_rn(m00);
-        const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(f10, f10), __fmul_rn(f01, f01)));
-        const float offset = __fdiv_rn(norm, fmaxf(f00, 1e-6f));
-        const float a = offset >= kIcMinOffsetPx ? atan2f(f01, f10) : 0.0f;
-        angle[k] = a;
-        const int b = __float2int_rn(__fmul_rn(a, inv_bin));
-        bin = ((b % kBins) + kBins) % kBins;
-      }
-      bin = __shfl_sync(0xffffffffu, bin, 0);
+    if (lane == 0) {
+      const float f10 = __int2float_rn(m10);
+      const float f01 = __int2float_rn(m01);
+      const float f00 = __int2float_rn(m00);
+      const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(f10, f10), __fmul_rn(f01, f01)));
+      const float offset = __fdiv_rn(norm, fmaxf(f00, 1e-6f));
+      const float a = offset >= kIcMinOffsetPx ? atan2f(f01, f10) : 0.0f;
+      angle[k] = a;
+      const int b = __float2int_rn(__fmul_rn(a, inv_bin));
+      bin = ((b % kBins) + kBins) % kBins;
     }
-    if (kGroup > 1) {
-      if (gw == 0 && lane == 0) scratch[3 * kGroup] = bin;
-      group_sync(group);
-      bin = scratch[3 * kGroup];
-    }
-
+    bin = __shfl_sync(0xffffffffu, bin, 0);
     split.mark(4);
 
     // BRIEF: bit t = q[p2_t] > q[p1_t]; a ballot gives one 32-bit word,
-    // whose little-endian bytes are the LSB-first packing.  Lane g of the
-    // warp keeps the warp's word g; the words go out as one row.
+    // whose little-endian bytes are the LSB-first packing.  Lane g keeps
+    // word g; the words go out as one row.
     const short* pattern = s_rot + bin * kPattern;
     unsigned word = 0;
 #pragma unroll
-    for (int g = 0; g < kWords / kGroup; ++g) {
-      const int t = (gw * (kWords / kGroup) + g) * 32 + lane;
+    for (int g = 0; g < kWords; ++g) {
+      const int t = g * 32 + lane;
       const int i1 = pattern[t];
       const int i2 = pattern[kPattern / 2 + t];
       const int v1 = __float_as_int(rows[(i1 >> 5) * kPitch + (i1 & 31)]);
@@ -511,8 +448,8 @@ __global__ void __launch_bounds__(kThreads) orb_describe_kernel(
       const unsigned bits = __ballot_sync(0xffffffffu, v2 > v1);
       if (lane == g) word = bits;
     }
-    if (lane < kWords / kGroup) desc[static_cast<long long>(k) * kWords + gw * (kWords / kGroup) + lane] = word;
-    group_sync(group);                        // q read: the next keypoint may overwrite it
+    if (lane < kWords) desc[static_cast<long long>(k) * kWords + lane] = word;
+    __syncwarp();                             // q read: the next keypoint may overwrite it
     split.mark(5);
     split.keypoint();
     dx = dxn;

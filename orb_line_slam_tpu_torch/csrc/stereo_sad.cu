@@ -76,13 +76,11 @@ constexpr int kStripPerLane = (kStrip + 31) / 32;   // 8
 constexpr int kRawPerLane = (kRaw + 31) / 32;       // 9
 constexpr int kSlots = 16;                     // the reduce-scatter's slots: the 11 slides and 5 zeros
 constexpr int kWarps = 4;                      // keypoints per block; 1, 2 and 8 measured the same
-#ifndef STEREO_SAD_MIN_BLOCKS
-#define STEREO_SAD_MIN_BLOCKS 8
-#endif
 // Resident blocks an SM must hold: 8 caps a thread at 64 registers, so
 // that a batched step's 8,000 warps take two waves (the compiler's own
-// choice, 82, gave 20 warps an SM; 12 and 16 blocks spill).
-constexpr int kMinBlocks = STEREO_SAD_MIN_BLOCKS;
+// choice, 82 registers, gave 20 warps an SM and was slower there; 12 and
+// 16 blocks spill: PERF.md).
+constexpr int kMinBlocks = 8;
 #ifndef STEREO_SAD_SPLIT
 #define STEREO_SAD_SPLIT 0
 #endif

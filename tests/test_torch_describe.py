@@ -314,22 +314,17 @@ struct HostWarp {
   alignas(8) unsigned char ex[2][32 * 8];
 };
 // A CTA: its own shared memory (filled with NaN bytes: nothing may read
-// what it did not write), its barrier, its warps, its groups' barriers.
+// what it did not write), its barrier and its warps.
 struct HostCta {
-  HostCta(int bytes, int threads, int group_threads)
-      : smem(bytes, 0xff), block(threads), warps(threads / 32) {
-    for (int g = 0; g < threads / group_threads; ++g) groups.push_back(std::make_unique<std::barrier<>>(group_threads));
-  }
+  HostCta(int bytes, int threads) : smem(bytes, 0xff), block(threads), warps(threads / 32) {}
   std::vector<unsigned char> smem;
   std::barrier<> block;
   std::vector<HostWarp> warps;
-  std::vector<std::unique_ptr<std::barrier<>>> groups;
 };
 thread_local HostCta* t_cta = nullptr;
 thread_local int t_phase = 0;
 inline void __syncthreads() { t_cta->block.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { t_cta->warps[threadIdx.x >> 5].bar.arrive_and_wait(); }
-inline void group_sync(int group) { t_cta->groups[group]->arrive_and_wait(); }
 inline unsigned char* shared_base() { return t_cta->smem.data(); }
 // The asynchronous copy as a plain copy, and its wait as nothing.
 inline void copy_async(float* dst, const float* src) { *dst = *src; }
@@ -379,7 +374,7 @@ extern "C" void host_launch(const float* atlas, int b, int h, int w, const int* 
                             const float* band, const short* rot, float inv_bin, float* angle, unsigned char* desc,
                             int ctas) {
   std::vector<std::unique_ptr<HostCta>> cta;
-  for (int c = 0; c < ctas; ++c) cta.push_back(std::make_unique<HostCta>(kSharedBytes, kThreads, 32 * kGroup));
+  for (int c = 0; c < ctas; ++c) cta.push_back(std::make_unique<HostCta>(kSharedBytes, kThreads));
   std::vector<std::thread> threads;
   for (int c = 0; c < ctas; ++c) {
     for (int i = 0; i < kThreads; ++i) {
@@ -400,7 +395,7 @@ extern "C" void host_launch(const float* atlas, int b, int h, int w, const int* 
 extern "C" void host_launch(const float* atlas_l, const int* xy_l, const float* atlas_r, const float* cx,
                             const float* cy, int h, int w, int n, int total, float* sad, int ctas) {
   std::vector<std::unique_ptr<HostCta>> cta;
-  for (int c = 0; c < ctas; ++c) cta.push_back(std::make_unique<HostCta>(kWarps * (kRaw + kStrip) * 4, 32 * kWarps, 32));
+  for (int c = 0; c < ctas; ++c) cta.push_back(std::make_unique<HostCta>(kWarps * (kRaw + kStrip) * 4, 32 * kWarps));
   std::vector<std::thread> threads;
   for (int c = 0; c < ctas; ++c) {
     for (int i = 0; i < 32 * kWarps; ++i) {
@@ -439,12 +434,9 @@ def _host_build(tmp_path_factory, name, flags=()):
     return lib
 
 
-@pytest.fixture(scope="module", params=["one warp", "two warps"])
-def host_describe(request, tmp_path_factory):
-    """orb_describe.cu for the host: one keypoint per warp (as built for
-    the card) or per group of two warps (-DORB_DESCRIBE_GROUP=2)."""
-    flags = () if request.param == "one warp" else ("-DORB_DESCRIBE_GROUP=2",)
-    lib = _host_build(tmp_path_factory, "orb_describe", flags)
+@pytest.fixture(scope="module")
+def host_describe(tmp_path_factory):
+    lib = _host_build(tmp_path_factory, "orb_describe")
     lib.host_launch.argtypes = [*describe._ARGTYPES, ctypes.c_int]
     return lib
 
@@ -463,18 +455,21 @@ def _libm_atan2f():
     return lambda y, x: np.array([fn(float(a), float(b)) for a, b in zip(y, x)], np.float32)
 
 
-def test_describe_source_on_host_threads_is_the_emulations_bits(host_describe):
-    """csrc/orb_describe.cu over 2 persistent CTAs on 64 keypoints of two
-    images: the emulation's angles (with the same atan2f) and descriptors
-    bit for bit, and a rerun the same bits."""
+@pytest.mark.parametrize("n", [32, 7])
+def test_describe_source_on_host_threads_is_the_emulations_bits(host_describe, n):
+    """csrc/orb_describe.cu over 2 persistent CTAs on 2 x n keypoints of
+    two images (64: each warp walks more than one keypoint, the tile
+    stages in turn; 14: most warps have none): the emulation's angles
+    (with the same atan2f) and descriptors bit for bit, and a rerun the
+    same bits."""
     atlas = _atlas(31, 2, 72, 90)
-    xy, delta = _border_cases(32, 2, 72, 90, 32)
+    xy, delta = (np.ascontiguousarray(a[:, :n]) for a in _border_cases(32, 2, 72, 90, max(n, 12)))
     bands, rot = (t.contiguous() for t in describe._kernel_tables_on(torch.device("cpu")))
 
     def run():
-        angle, desc = torch.full((64,), float("nan")), torch.zeros((64, 32), dtype=torch.uint8)
+        angle, desc = torch.full((2 * n,), float("nan")), torch.zeros((2 * n, 32), dtype=torch.uint8)
         A, X, D = T(atlas), T(xy), T(delta)
-        host_describe.host_launch(A.data_ptr(), 2, 72, 90, X.data_ptr(), D.data_ptr(), 32, bands.data_ptr(),
+        host_describe.host_launch(A.data_ptr(), 2, 72, 90, X.data_ptr(), D.data_ptr(), n, bands.data_ptr(),
                                   rot.data_ptr(), describe._INV_BIN, angle.data_ptr(), desc.data_ptr(), 2)
         return angle.numpy(), desc.numpy()
 
