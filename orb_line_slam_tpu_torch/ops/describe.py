@@ -104,9 +104,9 @@ def shift_blur_bands() -> np.ndarray:
 
 
 def band_rows() -> np.ndarray:
-    """float32 [32, 28], the bands as the kernel reads them: row i holds
-    its 27 coefficients, matrix-major ([m * 9 + o]), and one of padding,
-    so that a row is seven 16-byte loads."""
+    """float32 [32, 28], the bands as the kernel takes them: row i holds
+    its 27 coefficients, matrix-major ([m * 9 + o]), and one of padding.
+    Each CTA copies the rows and taps it uses into shared memory once."""
     rows = np.zeros((PATCH, 3 * BAND_TAPS + 1), np.float32)
     rows[:, : 3 * BAND_TAPS] = shift_blur_bands().transpose(1, 0, 2).reshape(PATCH, 3 * BAND_TAPS)
     return rows

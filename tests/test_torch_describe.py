@@ -2,7 +2,9 @@
 CPU: their plain versions against the JAX package on the same numpy
 inputs, the kernels' arithmetic (banded products in ascending order,
 ballot packing, lane-ordered SAD sums) emulated in numpy against the plain
-versions, input checks, launch counting, and the kernel loader with a
+versions, the current kernels' order of operations against the first
+design's bit for bit, both CUDA sources compiled for the host and run on
+host threads, input checks, launch counting, and the kernel loader with a
 stand-in compiler.  Tolerances are stated per test."""
 
 import ctypes
