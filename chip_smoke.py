@@ -332,6 +332,25 @@ JAX_CPU_REFERENCE_ATE_ENDURANCE_M = 0.0563
 # bench.py:92's long run (run_endurance's defaults: 8 m radius, 2.3 laps),
 # outside the smoke (chip_smoke.py --endurance-long).
 ENDURANCE_LONG = dict(n_frames=1500, radius=8.0, laps=2.3)
+# Phase 17: the loop cell's circuit seen by one camera, the left images of
+# phase 10's stereo pairs through track_monocular, loop closing on (the loop
+# Sim3 then estimates its scale: fix_scale = not is_mono) and off.  The JAX
+# package on the same 170 images, System(use_loop_closing=True,
+# async_loop=False), gba_async = False, tracker.async_mapping = False,
+# pipeline_depth = 0, on the CPU with JAX_PLATFORMS=cpu: the ATE over its
+# tracked frames (similarity-aligned), its loops and its first tracked
+# frame (168 frames tracked, 30 keyframes, final state OK); and the same
+# run with loop closing off, which ends the same: the JAX package closes
+# no loop on this circuit (ROADMAP Queue 3), so phase 17 (b) closes the
+# scale-drifted fixture's loop on the card as well.  The slow test
+# tests/test_torch_mono_loop.py::test_chip_smoke_mono_loop_jax_cpu_reference
+# recomputes them.
+JAX_CPU_REFERENCE_ATE_MONO_LOOP_M = 0.6482609673881481
+JAX_CPU_REFERENCE_ATE_MONO_NOLOOP_M = 0.6482609673881481
+JAX_CPU_MONO_LOOPS = 0
+JAX_CPU_MONO_LOOP_INIT_FRAME = 2
+# Phase 17 (b): the scale the fixture's return leg grows to, less one.
+FIXTURE_SCALE_DRIFT = 0.1
 
 
 def fail(msg: str):
@@ -493,16 +512,21 @@ def host_probe(tag: str):
           f"for a fixed Python loop")
 
 
-def phase_device():
-    import torch
-
-    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs a CUDA card")
+def print_card():
+    """The card's name and power limit, as nvidia-smi reports them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     print(smi.stdout.strip().splitlines()[0])
+
+
+def phase_device():
+    import torch
+
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False: this smoke test needs a CUDA card")
+    print_card()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     host_probe("start")
 
@@ -1414,7 +1438,7 @@ class PoseSolveSites:
 
 
 def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=False, warmup=WARMUP_FRAMES,
-              window=None, sensor="stereo", check_launches=True):
+              window=None, sensor="stereo", check_launches=True, end_tracked=True):
     """Drive the System on the card over the frames (``sensor`` "stereo":
     (left, right) pairs through track_stereo; "mono": images through
     track_monocular; "rgbd": (image, depth) pairs through track_rgbd), with
@@ -1430,7 +1454,9 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     over the same frames).  Every pose-solve launch must come from a
     tracking step (three each) or a solve from associations (one each);
     check_launches=False skips the launch checks (another tree's package,
-    whose kernels differ)."""
+    whose kernels differ); end_tracked=False lets the run end LOST (a
+    monocular System without a loop closer has no relocalization
+    candidates)."""
     import torch
 
     from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
@@ -1499,7 +1525,7 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     print(f"{name} stages: " + json.dumps(tr.timing.table(len(frames))))
     if window is not None:
         window.report()
-    check(slam.tracking_state() == "OK", f"{name}: final state {slam.tracking_state()}")
+    check(slam.tracking_state() == "OK" or not end_tracked, f"{name}: final state {slam.tracking_state()}")
     check(n_kf >= 3, f"{name}: only {n_kf} keyframes")
     check(tr.n_local_ba >= 1, f"{name}: no local BA was applied")
     # Two hand-written kernels per stereo pair, one orb_describe per mono or
@@ -2263,6 +2289,252 @@ def phase_rgbd_slice(cfg, poses, frames):
     check(not slam.tracker.is_mono, "rgbd slice: the tracker is monocular")
     check_ate("rgbd slice", ate, JAX_CPU_REFERENCE_ATE_RGBD_M)
     return launches, fps, per_frame, ate
+
+
+def phase_mono_loop_circuit(cfg, poses, frames):
+    """Phase 17 (a): monocular loop closing on the card, pinned: the left
+    images of the loop circuit (phase 10's frames) through
+    track_monocular with loop closing on, then off.  The tracker
+    initialises at the JAX package's frame; the loop closer estimates
+    the scale (fix_scale False) and closes at least as many loops as the
+    JAX package does on the CPU (none: ROADMAP Queue 3), each with a free
+    scale (s != 1) and followed by a global BA; the similarity-aligned
+    ATE over the tracked frames is no more than 10% + 1 cm above the JAX
+    package's and below the run without loop closing (whose lost frames
+    stay lost: no relocalization candidates); every frame launches one
+    orb_describe and no stereo_sad, every frame after the initialising
+    one at least one tracking step, and every tracking step three pose
+    solves."""
+    from orb_line_slam_tpu_torch.loop import loop_closing
+
+    lefts = [left for left, _ in frames]
+    closures = []
+    correct = loop_closing.LoopCloser._correct
+
+    def recorded_correct(self, kf_id, cand, sim, run_gba=True):
+        closures.append({"kf": int(kf_id), "cand": int(cand), "s": float(sim[0]), "fix_scale": bool(self.fix_scale)})
+        correct(self, kf_id, cand, sim, run_gba)
+
+    loop_closing.LoopCloser._correct = recorded_correct
+    try:
+        slam, launches, fps, ate, per_frame = run_slice(cfg, poses, lefts, "mono loop slice", 0.1,
+                                                        use_loop_closing=True, warmup=None, sensor="mono")
+    finally:
+        loop_closing.LoopCloser._correct = correct
+    lc = slam.loop_closer
+    traj = slam.tracker.final_trajectory()
+    init = next(i for i, e in enumerate(traj) if not e[4])
+    n_tracked = sum(not e[4] for e in traj)
+    sites = slam.pose_solve_sites
+    # Without a loop closer a monocular System has no relocalization
+    # candidates, so a frame lost stays lost.
+    slam_off, launches_off, fps_off, ate_off, _ = run_slice(cfg, poses, lefts, "mono loop slice, loop closing off",
+                                                            0.1, warmup=None, sensor="mono", end_tracked=False)
+    scales = [c["s"] for c in closures]
+    print(f"mono loop slice: initialised at frame {init} (JAX CPU: {JAX_CPU_MONO_LOOP_INIT_FRAME}), "
+          f"{slam.n_loops_closed} loop(s) closed (JAX CPU: {JAX_CPU_MONO_LOOPS}) at keyframe(s) "
+          f"{[c['kf'] for c in closures]} to {[c['cand'] for c in closures]}, estimated scale(s) {scales}, "
+          f"{lc.n_gba_applied} global BA ({lc.last_gba_solver}), {int(slam.map.n_keyframes())} keyframes, {n_tracked} "
+          f"frames tracked ({sum(not e[4] for e in slam_off.tracker.final_trajectory())} with loop closing off), "
+          f"final state {slam.tracking_state()}, {fps:.2f} frames/s over frames {init + 1}-{len(frames) - 1} "
+          f"({fps_off:.2f} with loop closing off, final state {slam_off.tracking_state()}), ATE {ate:.5f} m "
+          f"(similarity-aligned; JAX CPU reference {JAX_CPU_REFERENCE_ATE_MONO_LOOP_M:.5f} m; loop closing off {ate_off:.5f} m, JAX CPU "
+          f"{JAX_CPU_REFERENCE_ATE_MONO_NOLOOP_M:.5f} m); {launches['pose_solve']} pose-solve launches for "
+          f"{sites['track_steps']} tracking steps and {sites['assoc_solves']} solves from associations")
+    print("mono loop closer stages: " + json.dumps(lc.timing.table()) + "; closures " + json.dumps(lc.closure_ms))
+    check(slam.tracker.is_mono and lc is not None and not lc.fix_scale,
+          "mono loop slice: the loop closer of a monocular System does not estimate the scale")
+    check(slam.n_loops_closed >= JAX_CPU_MONO_LOOPS and len(closures) == slam.n_loops_closed,
+          f"mono loop slice: {slam.n_loops_closed} loops closed, the JAX package {JAX_CPU_MONO_LOOPS}")
+    check(all(not c["fix_scale"] and c["s"] != 1.0 for c in closures)
+          and [float(e.s) for e in lc.loop_edges] == scales,
+          f"mono loop slice: a loop closed without a free scale: {closures}")
+    check(lc.n_gba_applied >= min(len(closures), 1), "mono loop slice: a loop closed, yet no global BA was applied")
+    check(init == JAX_CPU_MONO_LOOP_INIT_FRAME, f"mono loop slice: initialised at frame {init}, the JAX package at "
+                                                f"{JAX_CPU_MONO_LOOP_INIT_FRAME}")
+    check(sites["track_steps"] >= len(frames) - init - 1,
+          f"mono loop slice: {sites['track_steps']} tracking steps, want one per frame after frame {init}")
+    check(slam_off.n_loops_closed == 0 and slam_off.loop_closer is None, "loop closing off, yet a loop closed")
+    check_ate("mono loop slice", ate, JAX_CPU_REFERENCE_ATE_MONO_LOOP_M)
+    check(ate < ate_off, f"mono loop slice: ATE {ate:.5f} m with loop closing is not below {ate_off:.5f} m without")
+    add_launches(launches, launches_off)
+    return launches, {
+        "mono_loop_pipeline_fps": fps, "ate_rmse_mono_loop_m": ate, "ate_mono_loops": slam.n_loops_closed,
+        "mono_loop_scale": scales, "mono_noloop_pipeline_fps": fps_off, "ate_rmse_mono_noloop_m": ate_off,
+        "mono_loop_frame_host_ms": per_frame, "mono_loop_init_frame": init,
+        "mono_closing_event_ms": [{k: c.get(k) for k in ("kf", "detect", "sim3", "correct", "essential_graph", "gba")}
+                                  for c in lc.closure_ms],
+    }
+
+
+def scale_drifted_mono_map():
+    """tests/test_torch_loop_closer.py::build_drifted_map(scale_drift=
+    FIXTURE_SCALE_DRIFT, mono=True) in the port's MapStore (the test
+    holds the two equal): 12 keyframes out along z and back over one set
+    of places, the return leg drifting up to (1.5, 0.4, 0.8) m and
+    growing in scale to 1 + FIXTURE_SCALE_DRIFT, each keyframe
+    re-observing 100 of the previous one's landmarks, the observations
+    monocular.  Returns (config, store, the true translations)."""
+    from types import SimpleNamespace
+
+    from orb_line_slam_tpu_torch.config import CameraIntrinsics, MapConfig, OrbConfig, SlamConfig
+    from orb_line_slam_tpu_torch.slam_map.map_store import MapStore
+
+    cam = CameraIntrinsics(fx=400.0, fy=400.0, cx=320.0, cy=160.0, bf=160.0, width=640, height=320)
+    F, n_kf, n_own = 256, 12, 156
+    cfg = SlamConfig(camera=cam, orb=OrbConfig(n_features=F, n_levels=4),
+                     map=MapConfig(max_keyframes=32, max_points=4096, max_lines=64, local_window=6, local_points=2048))
+    store = MapStore(cfg.map, F)
+    rng = np.random.default_rng(33)
+    n_shared = F - n_own
+    drift = np.array([1.5, 0.4, 0.8], np.float32)
+    place_desc = {k: rng.integers(0, 256, (F, 32), dtype=np.uint8) for k in range(9)}
+    pts_cam = np.stack([rng.uniform(-4, 4, F), rng.uniform(-2, 2, F), rng.uniform(5, 25, F)], -1).astype(np.float32)
+    u = cam.fx * pts_cam[:, 0] / pts_cam[:, 2] + cam.cx
+    v = cam.fy * pts_cam[:, 1] / pts_cam[:, 2] + cam.cy
+    true_t, prev_ids, prev_place = [], None, None
+    scale_offset = np.zeros(3, np.float32)
+    for k in range(n_kf):
+        place = k if k < 9 else 11 - k
+        t_true = np.array([0.0, 0.0, 1.0 * place], np.float32)
+        frac = max(0, (k - 6) / (n_kf - 7))
+        sc = np.float32(1.0 + FIXTURE_SCALE_DRIFT * frac)
+        if k:
+            scale_offset = scale_offset + (sc - 1) * (t_true - true_t[-1])
+        true_t.append(t_true)
+        t_est = t_true + drift * frac + scale_offset
+        R = np.eye(3, dtype=np.float32)
+        descs = place_desc[place].copy()
+        if prev_place is not None:
+            descs[n_own:] = place_desc[prev_place][:n_shared]
+        frame = SimpleNamespace(xy=np.stack([u, v], -1).astype(np.float32), u_right=np.full(F, -1.0, np.float32),
+                                depth=np.full(F, -1.0, np.float32), octave=np.zeros(F, np.int32),
+                                angle=np.zeros(F, np.float32), desc=descs, valid=np.ones(F, bool))
+        kf = store.add_keyframe(frame, R, t_est, frame_id=k, timestamp=k * 0.1)
+        ids = store.add_points(pts_cam[:n_own] * sc - t_est, descs[:n_own], np.zeros(n_own, np.int32), kf,
+                               np.arange(n_own))
+        if prev_ids is not None:
+            store.kf_obs_lm[kf, n_own:] = prev_ids[:n_shared]
+            p_cam = store.pt_pos[prev_ids[:n_shared]] @ R.T + t_est
+            store.kf_xy[kf, n_own:] = np.stack([cam.fx * p_cam[:, 0] / p_cam[:, 2] + cam.cx,
+                                                cam.fy * p_cam[:, 1] / p_cam[:, 2] + cam.cy], -1)
+        prev_ids, prev_place = ids, place
+    return cfg, store, np.stack(true_t)
+
+
+def fixture_gap(kf_R, kf_t, true_t, kf, cand):
+    """Error (m) of the closing keyframe's centre seen from the loop
+    keyframe's camera in scale_drifted_mono_map (no camera rotates)."""
+    est = kf_R[cand] @ (-kf_R[kf].T @ kf_t[kf]) + kf_t[cand]
+    return float(np.linalg.norm(est - (true_t[cand] - true_t[kf])))
+
+
+def close_fixture(device, fix_scale):
+    """The port's LoopCloser on `device` over scale_drifted_mono_map():
+    the keyframes in order, then the global BA.  Returns the closer, the
+    closing keyframe, each stage's (kf_R, kf_t, pt_pos, pt_valid) and the gap
+    across the loop at each stage, and the host ms of the closure."""
+    import torch
+
+    from orb_line_slam_tpu_torch.loop.loop_closing import LoopCloser
+    from orb_line_slam_tpu_torch.loop.vocabulary import Vocabulary
+
+    cfg, store, true_t = scale_drifted_mono_map()
+    voc = Vocabulary.train(store.kf_desc[store.kf_valid].reshape(-1, 32)[:8000], k=8, depth=3)
+    lc = LoopCloser(cfg, store, voc, device=device)
+    lc.fix_scale = fix_scale
+    stages = {}
+
+    def record(tag):
+        stages[tag] = (store.kf_R.copy(), store.kf_t.copy(), store.pt_pos.copy(), store.pt_valid.copy())
+
+    graph = lc._optimize_essential_graph
+
+    def recorded_graph(*a, **k):
+        record("rewrite_and_fuse")
+        graph(*a, **k)
+        record("essential_graph")
+
+    lc._optimize_essential_graph = recorded_graph
+    record("before")
+    t0 = time.perf_counter()
+    closed = None
+    for k in range(store._next_kf):
+        if lc.process_keyframe(k, run_gba=False):
+            closed = lc.last_closed_kf
+    if closed is None and lc.flush(run_gba=False):
+        closed = lc.last_closed_kf
+    if closed is not None:
+        lc.run_global_ba()
+        record("global_ba")
+    if device != "cpu":
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    gaps = {}
+    if closed is not None:
+        edge = lc.loop_edges[0]
+        for tag, (R, t, _, _) in stages.items():
+            gaps[tag] = fixture_gap(R, t, true_t, edge.kf_a, edge.kf_b)
+    return lc, closed, stages, gaps, ms
+
+
+def phase_mono_loop_fixture():
+    """Phase 17 (b): the free-scale closure of a scale-drifted monocular
+    map on the card (tests/test_torch_mono_loop.py's fixture), held to the
+    same closure on CPU tensors: both close at keyframe 11 with one Sim3
+    (scale within 1e-4 of each other and within 5e-3 of the imposed 1.1),
+    the group rewrite and fuse and the essential graph agree under the
+    pose contract, the gap across the loop shrinks from > 1.5 m to < 0.1 m
+    and stays < 0.2 m after the global BA on the mono observations, and
+    the same map closed with a fixed scale on the card keeps a gap at
+    least five times larger."""
+    gpu, closed, stages, gaps, ms = close_fixture("cuda", fix_scale=False)
+    cpu, closed_cpu, stages_cpu, _, ms_cpu = close_fixture("cpu", fix_scale=False)
+    _, closed_fix, _, gaps_fix, _ = close_fixture("cuda", fix_scale=True)
+    check(closed == closed_cpu == 11 and closed_fix == 11,
+          f"mono loop fixture: closed at keyframe {closed} on the card, {closed_cpu} on the CPU, {closed_fix} with a "
+          "fixed scale; want 11")
+    eg, ec = gpu.loop_edges[0], cpu.loop_edges[0]
+    scale = float(eg.s)
+    check(not gpu.fix_scale and (eg.kf_a, eg.kf_b) == (ec.kf_a, ec.kf_b) and abs(scale - float(ec.s)) < 1e-4
+          and abs(scale - (1 + FIXTURE_SCALE_DRIFT)) < 5e-3,
+          f"mono loop fixture: Sim3 scale {scale} on the card, {float(ec.s)} on the CPU, imposed "
+          f"{1 + FIXTURE_SCALE_DRIFT}")
+    check(gpu.n_gba_applied == 1, "mono loop fixture: no global BA applied")
+    agree = {}
+    for tag in ("before", "rewrite_and_fuse", "essential_graph"):
+        (Rg, tg, pg, vg), (Rc, tc, pc, vc) = stages[tag], stages_cpu[tag]
+        check(np.array_equal(vg, vc), f"mono loop fixture: the card and the CPU keep other landmarks after {tag}")
+        n = 12
+        cg = -np.einsum("kji,kj->ki", Rg[:n], tg[:n])
+        cc = -np.einsum("kji,kj->ki", Rc[:n], tc[:n])
+        agree[tag] = {"rot": rotation_gap(Rg[:n], Rc[:n]),
+                      "kf_m": float(np.linalg.norm(cg - cc, axis=1).max()),
+                      "pts_median_m": float(np.median(np.linalg.norm(pg[vg] - pc[vc], axis=1)))}
+        check(agree[tag]["rot"] < 1e-3 and agree[tag]["kf_m"] < 5e-3 and agree[tag]["pts_median_m"] < 5e-3,
+              f"mono loop fixture: the card's map after {tag} is not the CPU's: {agree[tag]}")
+    _, tg, pg, vg = stages["global_ba"]
+    check(np.isfinite(tg).all() and np.isfinite(pg[vg]).all(), "mono loop fixture: the global BA left a non-finite map")
+    check(gaps["before"] > 1.5 and gaps["rewrite_and_fuse"] < 0.1 and gaps["essential_graph"] < 0.1
+          and gaps["global_ba"] < 0.2, f"mono loop fixture: gaps across the loop {gaps}")
+    check(gaps_fix["essential_graph"] > 5 * gaps["essential_graph"],
+          f"mono loop fixture: a fixed scale leaves {gaps_fix['essential_graph']:.4f} m, the free scale "
+          f"{gaps['essential_graph']:.4f} m")
+    print(f"mono loop fixture: closed at keyframe {closed} to {eg.kf_b} with scale {scale:.6f} on the card "
+          f"({float(ec.s):.6f} on the CPU; imposed {1 + FIXTURE_SCALE_DRIFT}), gaps across the loop (m) "
+          f"{json.dumps(gaps)} (fixed scale {json.dumps(gaps_fix)}), card against CPU {json.dumps(agree)}; "
+          f"the closure took {ms:.1f} host ms on the card ({ms_cpu:.1f} on the CPU)")
+    return {"mono_fixture_scale": scale, "mono_fixture_gap_m": gaps, "mono_fixture_fixed_scale_gap_m": gaps_fix,
+            "mono_fixture_card_vs_cpu": agree, "mono_fixture_closure_ms": ms}
+
+
+def phase_mono_loop(cfg, poses, frames):
+    """Phase 17: (a) the monocular circuit, (b) the scale-drifted fixture."""
+    launches, out = phase_mono_loop_circuit(cfg, poses, frames)
+    out.update(phase_mono_loop_fixture())
+    print_card()        # beside phase 17's numbers
+    print(json.dumps(out))
+    return launches, out
 
 
 PROFILE_START, PROFILE_FRAMES = 33, 3
@@ -3974,15 +4246,20 @@ def main():
     n, metrics["endurance"] = phase_endurance(loop_slam)
     add_launches(launches, n)
     done("phase 16")
+    n, mono_loop = phase_mono_loop(ccfg, cposes, cframes)
+    add_launches(launches, n)
+    metrics.update({k: mono_loop[k] for k in ("mono_loop_pipeline_fps", "ate_rmse_mono_loop_m", "ate_mono_loops",
+                                              "mono_loop_scale", "mono_fixture_scale")})
+    done("phase 17")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
     # launches: orb_describe and stereo_sad over the slices' stereo frames
     # (phases 5, 7, 10 and 11), the multi-sequence steps (phase 14) and
     # the endurance run (phase 16),
-    # orb_describe over the mono and RGB-D frames (phases 12 and 13),
+    # orb_describe over the mono and RGB-D frames (phases 12, 13 and 17),
     # patch_tiles over the single-image path with tiles (phase 4),
     # pose_solve over every tracking step and relocalization of phases 5,
-    # 7, 10-14 and 16, each read just after its path with the counts set
+    # 7, 10-14, 16 and 17, each read just after its path with the counts set
     # to 0 just before it.
     check(all(launches.get(name, 0) > 0 for name in KERNELS), f"a kernel was never launched on its path: {launches}")
     print(json.dumps({"kernels": [{

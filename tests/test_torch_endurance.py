@@ -8,6 +8,17 @@ the relocalization ladder.  Each package renders its own frames (the
 port's numpy renderer differs from the JAX package's cv2 one in a few
 edge pixels).  The slow tests are tests/test_endurance.py's two on the
 port, and the recomputation of chip_smoke.py's phase-16 constant.
+
+The JAX run is pinned to a deterministic schedule, as
+tests/test_torch_async_schedule.py pins it: its tracking module's clock
+advances one second per frame, and after each frame the test waits for
+the tracker's outstanding device work (the mapping chains and the
+deferred local BA).  Unpinned, the JAX System polls its deferred mapping
+by wall time (a BA is not polled before 0.1 s, map jobs not before
+0.05 s) and by whether XLA has finished, so where a BA lands, and with
+it the relocalization after the noise frames, follows the host's speed:
+on two CPUs the unpinned run lost 22 frames and never recovered.  The
+port's schedule is deterministic in frames (Tracker.poll_mapping).
 """
 
 import importlib.util
@@ -17,7 +28,10 @@ import pytest
 import torch
 
 from orb_line_slam_tpu.eval.endurance import run_endurance as jax_run_endurance
+from orb_line_slam_tpu.pipeline import tracking as jax_tracking
+from orb_line_slam_tpu.pipeline.system import System as JaxSystem
 from orb_line_slam_tpu_torch.eval.endurance import run_endurance
+from tests.test_torch_async_schedule import _FrameClock, _wait_jax
 
 torch.set_num_threads(1)
 
@@ -25,9 +39,32 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(n_frames=48, laps=0.18, loss_at=0.5, loss_frames=3, lines=False, shipping=False, fps_window=16)
 
 
+def pinned_jax_run_endurance(**kwargs):
+    """The JAX package's run_endurance on a schedule that does not depend
+    on the host: one second of the tracking module's clock per frame,
+    and each frame's outstanding device work awaited after it."""
+    clock = _FrameClock()
+    track = JaxSystem.track_stereo
+
+    def track_and_wait(self, *a, **k):
+        pose = track(self, *a, **k)
+        clock.now += 1.0
+        _wait_jax(self.tracker)
+        return pose
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_tracking, "time", clock)
+        mp.setattr(JaxSystem, "track_stereo", track_and_wait)
+        return jax_run_endurance(**kwargs)
+
+
 @pytest.fixture(scope="module")
 def runs():
-    return run_endurance(device="cpu", **SMALL), jax_run_endurance(**SMALL)
+    port, ref = run_endurance(device="cpu", **SMALL), pinned_jax_run_endurance(**SMALL)
+    keys = ("ate_long_lost_frames", "ate_long_recovered_at", "ate_long_kf_created", "ate_long_keyframes",
+            "ate_long_points", "ate_long_m")
+    print("endurance (port, JAX pinned): " + ", ".join(f"{k[9:]} {port[k]} {ref[k]}" for k in keys))
+    return port, ref
 
 
 def test_same_keys(runs):

@@ -31,24 +31,34 @@ F = 256  # features per KF
 class _F:
     """Duck-typed Frame for MapStore.add_keyframe."""
 
-    def __init__(self, descs, pts_cam):
+    def __init__(self, descs, pts_cam, mono=False):
         n = len(descs)
         u = CAM.fx * pts_cam[:, 0] / pts_cam[:, 2] + CAM.cx
         va = CAM.fy * pts_cam[:, 1] / pts_cam[:, 2] + CAM.cy
         self.xy = np.stack([u, va], -1).astype(np.float32)
-        self.u_right = (u - CAM.bf / pts_cam[:, 2]).astype(np.float32)
-        self.depth = pts_cam[:, 2].astype(np.float32)
+        # A monocular keyframe has no right-image coordinate and no depth.
+        self.u_right = np.full(n, -1.0, np.float32) if mono else (u - CAM.bf / pts_cam[:, 2]).astype(np.float32)
+        self.depth = np.full(n, -1.0, np.float32) if mono else pts_cam[:, 2].astype(np.float32)
         self.octave = np.zeros(n, np.int32)
         self.angle = np.zeros(n, np.float32)
         self.desc = descs
         self.valid = np.ones(n, bool)
 
 
-def build_drifted_map(n_lines=0):
+def build_drifted_map(n_lines=0, scale_drift=0.0, mono=False):
     """tests/test_loop_closing.py::build_drifted_map (a local generator
     and a 4096-point capacity): 12 keyframes out along z and back, the
     return leg drifting up to 1.8 m, each keyframe re-observing part of
-    the previous one's landmarks."""
+    the previous one's landmarks.
+
+    ``scale_drift`` adds the drift of a monocular map: along the return
+    leg the map's scale grows to 1 + scale_drift at the last keyframe,
+    each step between keyframes and each keyframe's own landmarks
+    (their depths in its camera) scaled by its keyframe's factor, so the
+    Sim3 from the loop keyframe's camera to the closing one's has scale
+    1 + scale_drift.  ``mono`` stores the observations without a right
+    coordinate or depth (u_right = depth = -1).  With neither, the map is
+    the original one bit for bit."""
     rng = np.random.default_rng(33)
     cfg = SlamConfig(
         camera=CAM,
@@ -68,20 +78,25 @@ def build_drifted_map(n_lines=0):
     true_t = []
     prev_ids = None
     prev_place = None
+    scale_offset = np.zeros(3, np.float32)   # what the scale drift adds to the path
     for k in range(n_kf):
         place = k if k < 9 else 11 - k
         t_true = np.array([0.0, 0.0, 1.0 * place], np.float32)
-        true_t.append(t_true)
         frac = max(0, (k - 6) / (n_kf - 7))
-        t_est = t_true + drift * frac       # drifted for the return keyframes
+        sc = np.float32(1.0 + scale_drift * frac)
+        if k:
+            scale_offset = scale_offset + (sc - 1) * (t_true - true_t[-1])
+        true_t.append(t_true)
+        t_est = t_true + drift * frac + scale_offset     # drifted for the return keyframes
         R = np.eye(3, dtype=np.float32)
 
         descs = place_desc[place].copy()
         if prev_place is not None:
             descs[n_own:] = place_desc[prev_place][:n_shared]
-        kf = store.add_keyframe(_F(descs, pts_cam), R, t_est, frame_id=k, timestamp=k * 0.1)
+        kf = store.add_keyframe(_F(descs, pts_cam, mono), R, t_est, frame_id=k, timestamp=k * 0.1)
         # own landmarks from the DRIFTED pose (self-consistent map)
-        ids = store.add_points(pts_cam[:n_own] - t_est, descs[:n_own], np.zeros(n_own, np.int32), kf, np.arange(n_own))
+        ids = store.add_points(pts_cam[:n_own] * sc - t_est, descs[:n_own], np.zeros(n_own, np.int32), kf,
+                               np.arange(n_own))
         # shared observations of the previous KF's landmarks, at their
         # true projections into this camera
         if prev_ids is not None:
@@ -90,8 +105,9 @@ def build_drifted_map(n_lines=0):
             u = CAM.fx * p_cam[:, 0] / p_cam[:, 2] + CAM.cx
             v = CAM.fy * p_cam[:, 1] / p_cam[:, 2] + CAM.cy
             store.kf_xy[kf, n_own:] = np.stack([u, v], -1)
-            store.kf_ur[kf, n_own:] = u - CAM.bf / p_cam[:, 2]
-            store.kf_depth[kf, n_own:] = p_cam[:, 2]
+            if not mono:
+                store.kf_ur[kf, n_own:] = u - CAM.bf / p_cam[:, 2]
+                store.kf_depth[kf, n_own:] = p_cam[:, 2]
         prev_ids = ids
         prev_place = place
     return cfg, store, np.stack(true_t), drift
