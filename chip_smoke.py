@@ -186,7 +186,21 @@ Phases (each fails loudly, and the script exits non-zero):
      synthesized 10^4-word vocabulary parsed natively and in Python,
      equal, with both host times; if not, the compiler's reason (the
      Python parse is the reference's own path, so the run goes on).
-Phases 5, 7, 8, 10, 12 and 13 pin the schedule the JAX references were
+ 17. monocular loop closing (mono_loop_runs, phase_mono_loop_circuit,
+     phase_mono_loop_fixture): (a) the loop circuit's left images
+     (phase 10's frames) through System.track_monocular, loop closing
+     on and off, pinned: the runs the same step by step until the first
+     failed tracking step or closure, every 20th tracking step and the
+     first 8 failed ones replayed on the CPU from the card's inputs with
+     the card's outcome, the frames tracked and the ATE within the
+     JAX package's spread over sensor-noise draws 0-8; (b) the same
+     under draw MONO_LOOP_CLOSING_DRAW, where the JAX package closes a
+     loop: >= 1 loop closed with a free scale and a global BA, no frame
+     lost, ATE within 10% + 1 cm of the JAX package's and below the run
+     without loop closing; one orb_describe per frame, no stereo_sad,
+     three pose solves per tracking step; (c) the scale-drifted fixture
+     closed on the card and on CPU tensors, the two held together.
+Phases 5, 7, 8, 10, 12, 13 and 17 pin the schedule the JAX references were
 computed on (System(..., async_loop=False), gba_async = False,
 tracker.async_mapping = False).  Every slice run prints the tracking thread's per-frame host ms (p50,
 p90, max; the tracking thread's stream synchronised after each frame,
@@ -197,10 +211,11 @@ A fixed host-CPU probe is timed at the start and after each slice, and
 the seconds since the start are printed after each group of phases.
 torch.profiler now and then returns a window with device records
 missing; such a window is taken again (a bounded number of times, then
-the run fails), and a line near the end says how many were.  All five sequences are rendered once, before phase 4, by worker
-processes (the frames equal those of rendering each in order).  The line
-before the last lists the four kernels, with their launches over
-phases 4, 5, 7, 10, 11, 12, 13, 14 and 16; the last line is the JSON
+the run fails), and a line near the end says how many were.  All six sequences (the circuit under two noise draws) are
+rendered once, before phase 4, by worker processes (the frames equal
+those of rendering each in order).  The line before the last lists the
+four kernels, with their launches over phases 4, 5, 7, 10, 11, 12, 13,
+14, 16 and 17; the last line is the JSON
 device record.  ``python3 chip_smoke.py --endurance-long`` runs
 bench.py:92's run_endurance(n_frames=1500, shipping=True) and the same
 run pinned instead (about 13 minutes each on the card).
@@ -222,7 +237,11 @@ kernel beside it).  ``python3
 chip_smoke.py --solver-probe DIR [VARIANT.cu ...]`` drives phases 5, 10
 and 11 (a) with this kernel, DIR's, the plain solve and each variant
 source in turn, and holds every solve of this kernel's phase 11 (a) to
-the plain version on its inputs.
+the plain version on its inputs.  ``python3 chip_smoke.py
+--mono-loop-draws 0,1,...`` runs phase 17 (a)'s two runs and step checks
+on each sensor-noise draw of the circuit named (the runs may end LOST)
+and prints each draw's frames tracked, ATE and loops beside the JAX
+package's.
 Imports nothing of JAX.
 """
 
@@ -322,34 +341,50 @@ MULTISEQ_STAGGER = 3
 # frame (2 pi 8 m x 0.45 laps / 120), inside the 0.275 m of the JAX
 # package's own 420-frame test (tests/test_endurance.py:19); noise frames
 # 60-63.  ATE (m) of the JAX package's run_endurance on the same call with
-# shipping=False (its own renderer), on the CPU with JAX_PLATFORMS=cpu: 4
-# frames lost, recovered_at 66 (the port's 64: JAX's tracking_state lags
-# its pipeline_depth of 2), 31 keyframes created, 28 alive, 2910 points, no
-# loop closed.  The slow test
+# shipping=False (its own renderer), on the CPU with JAX_PLATFORMS=cpu, on a
+# schedule that does not follow the host (one second of its tracking clock
+# per frame, its device work awaited after each frame): 4 frames lost,
+# recovered_at 66 (the port's 64: JAX's tracking_state lags its
+# pipeline_depth of 2), 26 keyframes created, 27 alive, 2841 points, no loop
+# closed.  The slow test
 # tests/test_torch_endurance.py::test_jax_endurance_reference recomputes it.
 ENDURANCE = dict(n_frames=120, laps=0.45, loss_at=0.5, loss_frames=4, lines=True, fps_window=30)
-JAX_CPU_REFERENCE_ATE_ENDURANCE_M = 0.0563
+JAX_CPU_REFERENCE_ATE_ENDURANCE_M = 0.0379
 # bench.py:92's long run (run_endurance's defaults: 8 m radius, 2.3 laps),
 # outside the smoke (chip_smoke.py --endurance-long).
 ENDURANCE_LONG = dict(n_frames=1500, radius=8.0, laps=2.3)
 # Phase 17: the loop cell's circuit seen by one camera, the left images of
 # phase 10's stereo pairs through track_monocular, loop closing on (the loop
-# Sim3 then estimates its scale: fix_scale = not is_mono) and off.  The JAX
-# package on the same 170 images, System(use_loop_closing=True,
+# Sim3 then estimates its scale: fix_scale = not is_mono) and off.  Monocular
+# tracking on this circuit runs near its gates (the median tracking step keeps
+# 55 inliers in either package), so which frames it loses is a float draw in
+# either package; the same circuit under other sensor-noise draws (loop_job's
+# `draw`) shows the spread.  The JAX package on the same 170 images under
+# draws 0-8 (draw 0 is phase 10's), System(use_loop_closing=True or False,
 # async_loop=False), gba_async = False, tracker.async_mapping = False,
-# pipeline_depth = 0, on the CPU with JAX_PLATFORMS=cpu: the ATE over its
-# tracked frames (similarity-aligned), its loops and its first tracked
-# frame (168 frames tracked, 30 keyframes, final state OK); and the same
-# run with loop closing off, which ends the same: the JAX package closes
-# no loop on this circuit (ROADMAP Queue 3), so phase 17 (b) closes the
-# scale-drifted fixture's loop on the card as well.  The slow test
+# pipeline_depth = 0, on the CPU with JAX_PLATFORMS=cpu: per draw and loop
+# closing on / off, (first tracked frame, frames tracked, similarity-aligned
+# ATE (m) over them, loops closed).  The slow test
 # tests/test_torch_mono_loop.py::test_chip_smoke_mono_loop_jax_cpu_reference
-# recomputes them.
-JAX_CPU_REFERENCE_ATE_MONO_LOOP_M = 0.6482609673881481
-JAX_CPU_REFERENCE_ATE_MONO_NOLOOP_M = 0.6482609673881481
-JAX_CPU_MONO_LOOPS = 0
-JAX_CPU_MONO_LOOP_INIT_FRAME = 2
-# Phase 17 (b): the scale the fixture's return leg grows to, less one.
+# recomputes them.  Draw MONO_LOOP_CLOSING_DRAW is one on which the JAX
+# package closes a loop; on draw 0 it closes none.
+NOISE_DRAW_STRIDE = 100000
+JAX_CPU_MONO_LOOP = {
+    0: {"on": (2, 168, 0.6482609673881481, 0), "off": (2, 168, 0.6482609673881481, 0)},
+    1: {"on": (2, 67, 0.6500950786872739, 0), "off": (2, 57, 0.107370733388417, 0)},
+    2: {"on": (2, 51, 0.50611186943958, 0), "off": (2, 167, 0.9663859244287274, 0)},
+    3: {"on": (2, 95, 0.42768990064632445, 0), "off": (2, 67, 0.47010180841631455, 0)},
+    4: {"on": (2, 168, 0.33461628827264506, 0), "off": (2, 152, 0.340291913461615, 0)},
+    5: {"on": (2, 168, 0.12227496123989115, 1), "off": (2, 168, 0.15820382646081496, 0)},
+    6: {"on": (2, 83, 0.13008262015878955, 0), "off": (2, 62, 0.12064469755488229, 0)},
+    7: {"on": (2, 166, 1.1228160145008748, 0), "off": (2, 140, 1.1245608985592541, 0)},
+    8: {"on": (2, 160, 0.3866244688066021, 0), "off": (2, 130, 0.3944644419954981, 0)},
+}
+MONO_LOOP_CLOSING_DRAW = 5
+# Phase 17 replays every 20th tracking step of a run with loop closing, and
+# its first 8 failed ones, on the CPU from the card's inputs.
+MONO_REPLAY_EVERY, MONO_REPLAY_FAILED = 20, 8
+# Phase 17 (c): the scale the fixture's return leg grows to, less one.
 FIXTURE_SCALE_DRIFT = 0.1
 
 
@@ -1437,6 +1472,99 @@ class PoseSolveSites:
         return 3 * self.counts["track_steps"] + self.counts["assoc_solves"]
 
 
+def to_cpu(x):
+    """CPU copies of the tensors in x (a tensor, or tuples, named or not,
+    of them; copies also of CPU tensors, which the tracker may write in
+    place later); anything else as it is."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_cpu(v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(to_cpu(v) for v in x)
+    return x
+
+
+class TrackStepLog:
+    """While entered, records each Tracker step: per consumed tracking step
+    (frame id, whether the step itself tracked, its inliers, the state,
+    the pose and the keyframe count after the frame), each
+    relocalization (frame id, success, the keyframe it ended on, the
+    first five keyframe-database candidates where there is a database),
+    and CPU copies of the inputs and outputs of chosen tracking steps: every
+    `every`-th frame and the first `keep_failed` steps that did not
+    track.  ``replay()`` runs the kept steps again on the CPU."""
+
+    def __init__(self, every=0, keep_failed=0):
+        self.every, self.keep_failed = every, keep_failed
+
+    def __enter__(self):
+        from orb_line_slam_tpu_torch.pipeline import tracking
+
+        T = tracking.Tracker
+        self._saved = [(tracking, "track_step", tracking.track_step), (T, "_dispatch_track_step", T._dispatch_track_step),
+                       (T, "_consume", T._consume), (T, "_relocalize", T._relocalize)]
+        step, dispatch, consume, relocalize = (fn for _, _, fn in self._saved)
+        self.step_fn = step
+        self.steps, self.relocs, self.kept = [], [], []
+        self.frame = -1     # the frame of the latest tracking step
+        last = {}
+        n_failed = [0]
+
+        def captured(*a, **k):
+            out = step(*a, **k)
+            last["call"] = (a, k)
+            return out
+
+        def dispatched(tr, frame, lines):
+            self.frame = tr.frame_id
+            out = dispatch(tr, frame, lines)
+            a, k = last.pop("call")
+            ok = bool(out.ok)
+            keep = bool(self.every) and tr.frame_id % self.every == 0
+            if not ok and n_failed[0] < self.keep_failed:
+                n_failed[0] += 1
+                keep = True
+            if keep:
+                self.kept.append((tr.frame_id, to_cpu(a), k, to_cpu(out)))
+            return out
+
+        def consumed(tr, e):
+            ok = bool(e.out.ok)
+            consume(tr, e)
+            self.steps.append((e.fid, ok, int(e.out.n_inliers), tr.state, tr.R.copy(), tr.t.copy(),
+                               int(tr.map.n_keyframes())))
+
+        def relocalized(tr, frame):
+            cands = tr.reloc_candidates_fn(frame)[:5] if tr.reloc_candidates_fn is not None else None
+            r = relocalize(tr, frame)
+            self.relocs.append({"frame": tr.frame_id, "ok": bool(r[0]), "kf": int(tr.ref_kf),
+                                "db_candidates": cands and [int(k) for k in cands]})
+            return r
+
+        for (obj, name, _), fn in zip(self._saved, (captured, dispatched, consumed, relocalized)):
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+    def replay(self):
+        """Each kept step on the CPU from the card's inputs: a list of
+        (frame id, (tracked, inliers) on the card, the same on the CPU,
+        the gap between the two poses in rad and in map units)."""
+        out = []
+        for fid, a, k, card in self.kept:
+            cpu = self.step_fn(*a, **k)
+            rot = rotation_gap(card.R[None].numpy(), cpu.R[None].numpy())
+            out.append((fid, (bool(card.ok), int(card.n_inliers)), (bool(cpu.ok), int(cpu.n_inliers)), rot,
+                        float((card.t - cpu.t).abs().max())))
+        return out
+
+
 def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=False, warmup=WARMUP_FRAMES,
               window=None, sensor="stereo", check_launches=True, end_tracked=True):
     """Drive the System on the card over the frames (``sensor`` "stereo":
@@ -2071,12 +2199,15 @@ def phase_loop_gba_cg(cam, C=512, P=65536, O=524288):
                 "kernels_per_lm_iteration": n_k // 2}
 
 
-def loop_job(cfg):
-    """The render job of the loop circuit (sensor noise on)."""
+def loop_job(cfg, draw=0):
+    """The render job of the loop circuit (sensor noise on).  Draw 0 is
+    phase 10's; draw d numbers its sensor-noise draws from
+    NOISE_DRAW_STRIDE * d: the same circuit under other noise."""
     from orb_line_slam_tpu_torch.data.synthetic import SyntheticScene, loop_circuit_trajectory
 
     scene = SyntheticScene(cfg.camera, **LOOP_SCENE)
     scene.noise_sigma = LOOP_NOISE_SIGMA
+    scene._noise_calls = NOISE_DRAW_STRIDE * draw
     return scene, loop_circuit_trajectory(LOOP_FRAMES, radius=LOOP_RADIUS, laps=LOOP_LAPS), "stereo"
 
 
@@ -2291,79 +2422,174 @@ def phase_rgbd_slice(cfg, poses, frames):
     return launches, fps, per_frame, ate
 
 
-def phase_mono_loop_circuit(cfg, poses, frames):
-    """Phase 17 (a): monocular loop closing on the card, pinned: the left
-    images of the loop circuit (phase 10's frames) through
-    track_monocular with loop closing on, then off.  The tracker
-    initialises at the JAX package's frame; the loop closer estimates
-    the scale (fix_scale False) and closes at least as many loops as the
-    JAX package does on the CPU (none: ROADMAP Queue 3), each with a free
-    scale (s != 1) and followed by a global BA; the similarity-aligned
-    ATE over the tracked frames is no more than 10% + 1 cm above the JAX
-    package's and below the run without loop closing (whose lost frames
-    stay lost: no relocalization candidates); every frame launches one
-    orb_describe and no stereo_sad, every frame after the initialising
-    one at least one tracking step, and every tracking step three pose
-    solves."""
+def mono_loop_runs(cfg, poses, frames, draw, end_tracked=True):
+    """One sensor-noise draw of the loop circuit's left images through
+    track_monocular on the card, pinned, with loop closing on and then
+    off, each under a TrackStepLog (the run with loop closing keeps every
+    MONO_REPLAY_EVERY-th tracking step and its first MONO_REPLAY_FAILED
+    failed ones for replay on the CPU).  Holds what no draw may break:
+
+    - the loop closer estimates the scale (fix_scale False); it closes at
+      least the JAX package's loops, each with s != 1 and a global BA;
+    - the tracker initialises at the JAX package's frame, and every frame
+      after it is at least one tracking step;
+    - the two runs are the same, step by step (inliers, state, the pose
+      bit for bit, the keyframe count), until the first failed tracking
+      step or the first closure: a loop closer that has closed nothing
+      does not change tracking; a first failed step fails in both runs
+      (from there on the run with loop closing relocalizes only from its
+      keyframe database's candidates, the other from its five newest
+      keyframes: ROADMAP Queue 3);
+    - each kept step gives on the CPU, from the card's inputs, the card's
+      outcome (tracked or not, inliers within 2) and, where it tracked,
+      its pose under the pose contract (1e-3 rad, 5e-3 map units).
+
+    end_tracked=False lets the run with loop closing end LOST.  Returns
+    the runs' numbers (the ATEs over each run's tracked frames and over
+    the frames both tracked) and the launches of both runs."""
+    import torch
+
+    from orb_line_slam_tpu_torch.eval.trajectory import ate_rmse
     from orb_line_slam_tpu_torch.loop import loop_closing
 
+    name = f"mono loop slice, draw {draw}"
+    jax_on, jax_off = JAX_CPU_MONO_LOOP[draw]["on"], JAX_CPU_MONO_LOOP[draw]["off"]
     lefts = [left for left, _ in frames]
     closures = []
     correct = loop_closing.LoopCloser._correct
+    log_on = TrackStepLog(every=MONO_REPLAY_EVERY, keep_failed=MONO_REPLAY_FAILED)
 
     def recorded_correct(self, kf_id, cand, sim, run_gba=True):
-        closures.append({"kf": int(kf_id), "cand": int(cand), "s": float(sim[0]), "fix_scale": bool(self.fix_scale)})
+        closures.append({"frame": log_on.frame, "kf": int(kf_id), "cand": int(cand), "s": float(sim[0]),
+                         "fix_scale": bool(self.fix_scale)})
         correct(self, kf_id, cand, sim, run_gba)
 
     loop_closing.LoopCloser._correct = recorded_correct
     try:
-        slam, launches, fps, ate, per_frame = run_slice(cfg, poses, lefts, "mono loop slice", 0.1,
-                                                        use_loop_closing=True, warmup=None, sensor="mono")
+        with log_on:
+            slam, launches, fps, _, per_frame = run_slice(cfg, poses, lefts, name, 0.1, use_loop_closing=True,
+                                                          warmup=None, sensor="mono", end_tracked=end_tracked)
     finally:
         loop_closing.LoopCloser._correct = correct
-    lc = slam.loop_closer
-    traj = slam.tracker.final_trajectory()
-    init = next(i for i, e in enumerate(traj) if not e[4])
-    n_tracked = sum(not e[4] for e in traj)
     sites = slam.pose_solve_sites
-    # Without a loop closer a monocular System has no relocalization
-    # candidates, so a frame lost stays lost.
-    slam_off, launches_off, fps_off, ate_off, _ = run_slice(cfg, poses, lefts, "mono loop slice, loop closing off",
-                                                            0.1, warmup=None, sensor="mono", end_tracked=False)
+    with TrackStepLog() as log_off:
+        slam_off, launches_off, fps_off, _, _ = run_slice(cfg, poses, lefts, name + ", loop closing off", 0.1,
+                                                          warmup=None, sensor="mono", end_tracked=False)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        replays = log_on.replay()
+    replay_s = time.perf_counter() - t0
+    gt = np.stack([-R.T @ t for (R, t) in poses])
+    runs = {}
+    for tag, s_ in (("on", slam), ("off", slam_off)):
+        traj = s_.tracker.final_trajectory()
+        runs[tag] = (np.stack([-R.T @ t for (_, _, R, t, _) in traj]), np.array([not e[4] for e in traj]))
+    (est, tracked), (est_off, tracked_off) = runs["on"], runs["off"]
+    both = tracked & tracked_off
+    ate = float(ate_rmse(est[tracked], gt[tracked], align=True, with_scale=True))
+    ate_off = float(ate_rmse(est_off[tracked_off], gt[tracked_off], align=True, with_scale=True))
+    ate_both = float(ate_rmse(est[both], gt[both], align=True, with_scale=True))
+    ate_off_both = float(ate_rmse(est_off[both], gt[both], align=True, with_scale=True))
+    init = int(np.argmax(tracked))
+    fail = next((st[0] for st in log_on.steps if not st[1]), None)
+    stop = min([f for f in (fail, closures[0]["frame"] if closures else None) if f is not None], default=len(frames))
+    before = [[st for st in log.steps if st[0] < stop] for log in (log_on, log_off)]
+    same = len(before[0]) == len(before[1]) and all(
+        a[:4] == b[:4] and np.array_equal(a[4], b[4]) and np.array_equal(a[5], b[5]) and a[6] == b[6]
+        for a, b in zip(*before))
+    fail_off = next((st[1] for st in log_off.steps if st[0] == fail), None) if fail == stop else None
+    lc = slam.loop_closer
     scales = [c["s"] for c in closures]
-    print(f"mono loop slice: initialised at frame {init} (JAX CPU: {JAX_CPU_MONO_LOOP_INIT_FRAME}), "
-          f"{slam.n_loops_closed} loop(s) closed (JAX CPU: {JAX_CPU_MONO_LOOPS}) at keyframe(s) "
-          f"{[c['kf'] for c in closures]} to {[c['cand'] for c in closures]}, estimated scale(s) {scales}, "
-          f"{lc.n_gba_applied} global BA ({lc.last_gba_solver}), {int(slam.map.n_keyframes())} keyframes, {n_tracked} "
-          f"frames tracked ({sum(not e[4] for e in slam_off.tracker.final_trajectory())} with loop closing off), "
-          f"final state {slam.tracking_state()}, {fps:.2f} frames/s over frames {init + 1}-{len(frames) - 1} "
-          f"({fps_off:.2f} with loop closing off, final state {slam_off.tracking_state()}), ATE {ate:.5f} m "
-          f"(similarity-aligned; JAX CPU reference {JAX_CPU_REFERENCE_ATE_MONO_LOOP_M:.5f} m; loop closing off {ate_off:.5f} m, JAX CPU "
-          f"{JAX_CPU_REFERENCE_ATE_MONO_NOLOOP_M:.5f} m); {launches['pose_solve']} pose-solve launches for "
-          f"{sites['track_steps']} tracking steps and {sites['assoc_solves']} solves from associations")
-    print("mono loop closer stages: " + json.dumps(lc.timing.table()) + "; closures " + json.dumps(lc.closure_ms))
+    print(f"{name}: initialised at frame {init} (JAX CPU: {jax_on[0]}), {slam.n_loops_closed} loop(s) closed (JAX CPU: "
+          f"{jax_on[3]}) at frame(s) {[c['frame'] for c in closures]}, keyframe(s) {[c['kf'] for c in closures]} to "
+          f"{[c['cand'] for c in closures]}, estimated scale(s) {scales}, {lc.n_gba_applied} global BA "
+          f"({lc.last_gba_solver}), {int(slam.map.n_keyframes())} keyframes; frames tracked {int(tracked.sum())} with "
+          f"loop closing and {int(tracked_off.sum())} without (JAX CPU {jax_on[1]} and {jax_off[1]}); the runs are "
+          f"the same step by step up to frame {stop} ({'a failed step' if stop == fail else 'a closure' if closures else 'the end'}"
+          f"{f', which failed with loop closing off too' if fail_off is False else ''}); ATE {ate:.5f} m over the "
+          f"tracked frames ({ate_off:.5f} m without loop closing; JAX CPU {jax_on[2]:.5f} and {jax_off[2]:.5f} m), "
+          f"{ate_both:.5f} and {ate_off_both:.5f} m over the {int(both.sum())} frames both tracked; "
+          f"{fps:.2f} frames/s over frames {init + 1}-{len(frames) - 1} ({fps_off:.2f} without); "
+          f"{launches['pose_solve']} pose-solve launches for {sites['track_steps']} tracking steps and "
+          f"{sites['assoc_solves']} solves from associations")
+    print(f"{name}: relocalizations with loop closing (first 8 of {len(log_on.relocs)}): "
+          f"{json.dumps(log_on.relocs[:8])}; without (first 8 of {len(log_off.relocs)}): {json.dumps(log_off.relocs[:8])}")
+    print(f"{name}: {len(replays)} tracking steps replayed on the CPU from the card's inputs in {replay_s:.1f} s "
+          "(frame, card (tracked, inliers), CPU (tracked, inliers), rad, map units): " + json.dumps(replays))
+    print(f"{name} loop closer stages: " + json.dumps(lc.timing.table()) + "; closures " + json.dumps(lc.closure_ms))
     check(slam.tracker.is_mono and lc is not None and not lc.fix_scale,
-          "mono loop slice: the loop closer of a monocular System does not estimate the scale")
-    check(slam.n_loops_closed >= JAX_CPU_MONO_LOOPS and len(closures) == slam.n_loops_closed,
-          f"mono loop slice: {slam.n_loops_closed} loops closed, the JAX package {JAX_CPU_MONO_LOOPS}")
-    check(all(not c["fix_scale"] and c["s"] != 1.0 for c in closures)
-          and [float(e.s) for e in lc.loop_edges] == scales,
-          f"mono loop slice: a loop closed without a free scale: {closures}")
-    check(lc.n_gba_applied >= min(len(closures), 1), "mono loop slice: a loop closed, yet no global BA was applied")
-    check(init == JAX_CPU_MONO_LOOP_INIT_FRAME, f"mono loop slice: initialised at frame {init}, the JAX package at "
-                                                f"{JAX_CPU_MONO_LOOP_INIT_FRAME}")
+          f"{name}: the loop closer of a monocular System does not estimate the scale")
+    check(slam.n_loops_closed >= jax_on[3] and len(closures) == slam.n_loops_closed,
+          f"{name}: {slam.n_loops_closed} loops closed, the JAX package {jax_on[3]}")
+    check(all(not c["fix_scale"] and c["s"] != 1.0 for c in closures) and [float(e.s) for e in lc.loop_edges] == scales,
+          f"{name}: a loop closed without a free scale: {closures}")
+    check(lc.n_gba_applied >= min(len(closures), 1), f"{name}: a loop closed, yet no global BA was applied")
+    check(init == jax_on[0], f"{name}: initialised at frame {init}, the JAX package at {jax_on[0]}")
     check(sites["track_steps"] >= len(frames) - init - 1,
-          f"mono loop slice: {sites['track_steps']} tracking steps, want one per frame after frame {init}")
-    check(slam_off.n_loops_closed == 0 and slam_off.loop_closer is None, "loop closing off, yet a loop closed")
-    check_ate("mono loop slice", ate, JAX_CPU_REFERENCE_ATE_MONO_LOOP_M)
-    check(ate < ate_off, f"mono loop slice: ATE {ate:.5f} m with loop closing is not below {ate_off:.5f} m without")
+          f"{name}: {sites['track_steps']} tracking steps, want one per frame after frame {init}")
+    check(slam_off.n_loops_closed == 0 and slam_off.loop_closer is None, f"{name}: loop closing off, yet a loop closed")
+    check(same and len(before[0]) > 0, f"{name}: with loop closing on and off the runs part before frame {stop}, "
+                                       "the first failed step or closure")
+    check(fail != stop or fail_off is False,
+          f"{name}: the tracking step of frame {fail} failed with loop closing on and not off")
+    off_card = [r for r in replays if r[1][0] != r[2][0] or abs(r[1][1] - r[2][1]) > 2
+                or (r[1][0] and (r[3] > 1e-3 or r[4] > 5e-3))]
+    check(replays and not off_card, f"{name}: tracking steps whose CPU replay disagrees with the card: {off_card}")
     add_launches(launches, launches_off)
     return launches, {
-        "mono_loop_pipeline_fps": fps, "ate_rmse_mono_loop_m": ate, "ate_mono_loops": slam.n_loops_closed,
-        "mono_loop_scale": scales, "mono_noloop_pipeline_fps": fps_off, "ate_rmse_mono_noloop_m": ate_off,
-        "mono_loop_frame_host_ms": per_frame, "mono_loop_init_frame": init,
-        "mono_closing_event_ms": [{k: c.get(k) for k in ("kf", "detect", "sim3", "correct", "essential_graph", "gba")}
-                                  for c in lc.closure_ms],
+        "draw": draw, "fps": fps, "fps_off": fps_off, "per_frame": per_frame, "init": init,
+        "tracked": int(tracked.sum()), "tracked_off": int(tracked_off.sum()), "tracked_both": int(both.sum()),
+        "ate": ate, "ate_off": ate_off, "ate_both": ate_both, "ate_off_both": ate_off_both,
+        "loops": slam.n_loops_closed, "scales": scales, "same_until_frame": stop,
+        "first_failed_step": fail, "n_replayed": len(replays), "replay_s": replay_s,
+        "closing_event_ms": [{k: c.get(k) for k in ("kf", "detect", "sim3", "correct", "essential_graph", "gba")}
+                             for c in lc.closure_ms],
+    }
+
+
+def phase_mono_loop_circuit(cfg, poses, frames, closing_frames):
+    """Phase 17 (a) and (b): mono_loop_runs on draw 0 (phase 10's frames)
+    and on draw MONO_LOOP_CLOSING_DRAW.
+
+    (a) Draw 0, where the JAX package closes no loop and tracks all 168
+    frames after its initialisation: the frames tracked with loop closing
+    are no fewer than the fewest the JAX package tracks with loop closing
+    over draws 0-8, and the ATE over them no more than 10% + 1 cm above
+    the largest it reaches there.  Which frames a monocular run loses on
+    this circuit is a float draw in either package; mono_loop_runs holds
+    what does not depend on it.
+
+    (b) The closing draw, where the JAX package closes one loop and loses
+    no frame: the port closes at least one, loses no frame after its
+    initialisation with loop closing (the JAX package's count, no margin)
+    nor more than with it off, and its ATE is no more than 10% + 1 cm
+    above the JAX package's and below the run without loop closing over
+    the frames both runs tracked."""
+    launches, a = mono_loop_runs(cfg, poses, frames, 0)
+    n, b = mono_loop_runs(cfg, poses, closing_frames, MONO_LOOP_CLOSING_DRAW)
+    add_launches(launches, n)
+    least = min(v["on"][1] for v in JAX_CPU_MONO_LOOP.values())
+    worst = max(v["on"][2] for v in JAX_CPU_MONO_LOOP.values())
+    check(a["tracked"] >= least, f"mono loop slice, draw 0: {a['tracked']} frames tracked, fewer than the {least} the "
+                                 "JAX package tracks on its worst draw")
+    check_ate("mono loop slice, draw 0", a["ate"], worst)
+    jax = JAX_CPU_MONO_LOOP[MONO_LOOP_CLOSING_DRAW]["on"]
+    name = f"mono loop slice, draw {MONO_LOOP_CLOSING_DRAW}"
+    check(b["loops"] >= 1, f"{name}: no loop closed (the JAX package closes {jax[3]})")
+    check(b["tracked"] >= jax[1] and b["tracked"] >= b["tracked_off"],
+          f"{name}: {b['tracked']} frames tracked with loop closing, {b['tracked_off']} without, the JAX package {jax[1]}")
+    check_ate(name, b["ate"], jax[2])
+    check(b["ate_both"] < b["ate_off_both"], f"{name}: ATE {b['ate_both']:.5f} m with loop closing is not below "
+                                             f"{b['ate_off_both']:.5f} m without, over the frames both tracked")
+    print(f"mono loop slice: draw 0 tracks {a['tracked']} frames with loop closing (JAX CPU's fewest over draws 0-8 "
+          f"{least}), ATE {a['ate']:.5f} m (its largest {worst:.5f} m); draw {MONO_LOOP_CLOSING_DRAW} closes "
+          f"{b['loops']} loop(s) with scale(s) {b['scales']}, tracks {b['tracked']} frames (JAX CPU {jax[1]}), ATE "
+          f"{b['ate']:.5f} m (JAX CPU {jax[2]:.5f} m; {b['ate_off_both']:.5f} m without loop closing)")
+    return launches, {
+        "mono_loop_pipeline_fps": b["fps"], "ate_rmse_mono_loop_m": b["ate"], "ate_mono_loops": b["loops"],
+        "mono_loop_scale": b["scales"], "mono_loop_tracked_frames": {d["draw"]: [d["tracked"], d["tracked_off"]]
+                                                                     for d in (a, b)},
+        "mono_loop_draws": {d["draw"]: d for d in (a, b)},
     }
 
 
@@ -2479,7 +2705,7 @@ def close_fixture(device, fix_scale):
 
 
 def phase_mono_loop_fixture():
-    """Phase 17 (b): the free-scale closure of a scale-drifted monocular
+    """Phase 17 (c): the free-scale closure of a scale-drifted monocular
     map on the card (tests/test_torch_mono_loop.py's fixture), held to the
     same closure on CPU tensors: both close at keyframe 11 with one Sim3
     (scale within 1e-4 of each other and within 5e-3 of the imposed 1.1),
@@ -2528,13 +2754,42 @@ def phase_mono_loop_fixture():
             "mono_fixture_card_vs_cpu": agree, "mono_fixture_closure_ms": ms}
 
 
-def phase_mono_loop(cfg, poses, frames):
-    """Phase 17: (a) the monocular circuit, (b) the scale-drifted fixture."""
-    launches, out = phase_mono_loop_circuit(cfg, poses, frames)
+def phase_mono_loop(cfg, poses, frames, closing_frames):
+    """Phase 17: (a, b) the monocular circuit under two sensor-noise draws,
+    (c) the scale-drifted fixture."""
+    launches, out = phase_mono_loop_circuit(cfg, poses, frames, closing_frames)
     out.update(phase_mono_loop_fixture())
     print_card()        # beside phase 17's numbers
     print(json.dumps(out))
     return launches, out
+
+
+def mono_loop_draws(draws):
+    """chip_smoke.py --mono-loop-draws D,D,...: mono_loop_runs on the loop
+    circuit's left images under each sensor-noise draw, on the card (the
+    runs may end LOST); prints per draw and loop closing on / off the
+    frames tracked, the ATE over them, the loops and the first failed
+    tracking step, beside the JAX package's from JAX_CPU_MONO_LOOP."""
+    import torch
+
+    ccfg = loop_config()
+    jobs = [loop_job(ccfg, d) for d in draws]
+    check(threading.active_count() == 1, "a thread runs before the render workers are forked")
+    rendered = render_jobs(jobs, min(8, os.cpu_count() or 1))
+    phase_device()
+    import orb_line_slam_tpu_torch  # noqa: F401  (sets the fp32 policy)
+
+    phase_build()
+    rows = {}
+    for d, (_, poses, _), frames in zip(draws, jobs, rendered):
+        _, r = mono_loop_runs(ccfg, poses, frames, d, end_tracked=False)
+        rows[d] = {"on": [r["tracked"], r["ate"], r["loops"]], "off": [r["tracked_off"], r["ate_off"]],
+                   "first_failed_step": r["first_failed_step"], "same_until_frame": r["same_until_frame"],
+                   "scales": r["scales"],
+                   "jax_on": list(JAX_CPU_MONO_LOOP[d]["on"][1:]), "jax_off": list(JAX_CPU_MONO_LOOP[d]["off"][1:3])}
+        print(f"mono loop draw {d}: " + json.dumps(rows[d]))
+    print_card()
+    print("mono loop draws: " + json.dumps(rows))
 
 
 PROFILE_START, PROFILE_FRAMES = 33, 3
@@ -4173,14 +4428,14 @@ def main():
     # process has no thread and has not touched the card.
     cfg, lcfg, ccfg, tcfg = kitti_config(), euroc_config(), loop_config(), tum_config()
     jobs = [sequence_job(cfg, N_FRAMES), *tum_jobs(tcfg, N_FRAMES),
-            sequence_job(lcfg, N_FRAMES, LINE_SCENE, LINE_STEP), loop_job(ccfg)]
+            sequence_job(lcfg, N_FRAMES, LINE_SCENE, LINE_STEP), loop_job(ccfg), loop_job(ccfg, MONO_LOOP_CLOSING_DRAW)]
     check(threading.active_count() == 1, "a thread runs before the render workers are forked")
     n_proc = min(8, os.cpu_count() or 1)
-    frames, mframes, rframes, lframes, cframes = render_jobs(jobs, n_proc)
-    poses, mposes, rposes, lposes, cposes = (job[1] for job in jobs)
+    frames, mframes, rframes, lframes, cframes, closing_frames = render_jobs(jobs, n_proc)
+    poses, mposes, rposes, lposes, cposes, _ = (job[1] for job in jobs)
     print(f"rendered {len(frames)} KITTI-size stereo pairs, {len(mframes)} TUM-size mono images and {len(rframes)} "
           f"RGB-D pairs, {len(lframes)} EuRoC-size stereo pairs with lines and {len(cframes)} stereo pairs of the loop "
-          f"circuit in {time.perf_counter() - t_start:.1f} s ({n_proc} processes; host, set-up)")
+          f"circuit under each of two sensor-noise draws in {time.perf_counter() - t_start:.1f} s ({n_proc} processes; host, set-up)")
     phase_device()
     import orb_line_slam_tpu_torch  # noqa: F401  (sets the fp32 policy)
 
@@ -4246,10 +4501,10 @@ def main():
     n, metrics["endurance"] = phase_endurance(loop_slam)
     add_launches(launches, n)
     done("phase 16")
-    n, mono_loop = phase_mono_loop(ccfg, cposes, cframes)
+    n, mono_loop = phase_mono_loop(ccfg, cposes, cframes, closing_frames)
     add_launches(launches, n)
     metrics.update({k: mono_loop[k] for k in ("mono_loop_pipeline_fps", "ate_rmse_mono_loop_m", "ate_mono_loops",
-                                              "mono_loop_scale", "mono_fixture_scale")})
+                                              "mono_loop_scale", "mono_loop_tracked_frames", "mono_fixture_scale")})
     done("phase 17")
     print(json.dumps(metrics))
     print(json.dumps({"profiler_windows_taken_again": profile_retakes, "at_most_per_window": MAX_RETAKES}))
@@ -4288,6 +4543,9 @@ if __name__ == "__main__":
         schedule_probe(sys.argv[2], int(sys.argv[3]), sys.argv[4])
     elif sys.argv[1:2] == ["--pose-split"] and len(sys.argv) in (2, 3):
         pose_split(sys.argv[2] if len(sys.argv) == 3 else None)
+    elif sys.argv[1:2] == ["--mono-loop-draws"] and len(sys.argv) == 3:
+        sys.path.insert(0, ROOT)
+        mono_loop_draws([int(d) for d in sys.argv[2].split(",")])
     elif sys.argv[1:2] == ["--solver-probe"] and len(sys.argv) >= 3:
         solver_probe(sys.argv[2], sys.argv[3:])
     else:

@@ -137,15 +137,15 @@ def test_endurance_capacity_churn_no_loop():
 @pytest.mark.slow
 def test_jax_endurance_reference():
     """Where chip_smoke.py's JAX_CPU_REFERENCE_ATE_ENDURANCE_M comes from:
-    the JAX package's run_endurance on phase 16's call, pinned, on the
-    CPU (about two minutes).
+    the JAX package's run_endurance on phase 16's call on the pinned
+    schedule of pinned_jax_run_endurance, on the CPU (about two minutes).
 
         JAX_PLATFORMS=cpu python -m pytest -m slow tests/test_torch_endurance.py -k reference -s
     """
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    m = jax_run_endurance(shipping=False, **cs.ENDURANCE)
+    m = pinned_jax_run_endurance(shipping=False, **cs.ENDURANCE)
     print(m)
     assert m["ate_long_lost_frames"] == cs.ENDURANCE["loss_frames"]
     assert m["ate_long_m"] == pytest.approx(cs.JAX_CPU_REFERENCE_ATE_ENDURANCE_M, rel=1e-3)

@@ -131,3 +131,31 @@ def test_stereo_system_keeps_fixed_scale():
     s.shutdown()
     assert not s.tracker.is_mono
     assert s.loop_closer is not None and s.loop_closer.fix_scale is True
+
+
+def test_mono_loop_closer_leaves_tracking_alone():
+    """A loop closer that closes nothing does not change monocular
+    tracking: the pinned System over the 10 frames with loop closing on
+    (the vocabulary trained at the first keyframe, every keyframe through
+    the database and the detection) and off gives the same per-frame
+    records, the same trajectory bit for bit and the same map.
+    chip_smoke.py's phase 17 holds the same on the card, up to a circuit's
+    first failed tracking step or closure."""
+    _, imgs = _sequence()
+    runs = []
+    for use_loop in (True, False):
+        s = System(TCFG, use_loop_closing=use_loop, async_loop=False, device="cpu")
+        s.gba_async = False
+        s.tracker.async_mapping = False
+        for i, img in enumerate(imgs):
+            s.track_monocular(img, timestamp=0.1 * i)
+        s.shutdown()
+        runs.append(s)
+    on, off = runs
+    assert on.loop_closer is not None and len(on.loop_closer.db.bow) >= 2 and off.loop_closer is None
+    assert on.n_loops_closed == 0 and on.tracking_state() == off.tracking_state() == "OK"
+    assert on.tracker.stats == off.tracker.stats
+    for a, b in zip(on.tracker.final_trajectory(), off.tracker.final_trajectory(), strict=True):
+        assert a[0] == b[0] and a[4] == b[4] and np.array_equal(a[2], b[2]) and np.array_equal(a[3], b[3])
+    for name in ("kf_valid", "kf_R", "kf_t", "pt_valid", "pt_pos"):
+        assert np.array_equal(getattr(on.map, name), getattr(off.map, name)), name
