@@ -18,6 +18,7 @@ import torch
 
 from ..config import SlamConfig
 from ..geometry.camera import undistort_points
+from ..utils.timing import span
 from .orb_extractor import extract_orb, extract_orb_stereo
 from .stereo import stereo_match
 
@@ -47,7 +48,8 @@ def build_stereo_frame(img_left: torch.Tensor, img_right: torch.Tensor, cfg: Sla
     """Features and stereo depths of a rectified [H, W] pair (uint8 or
     float32), or of B pairs [B, H, W] with a leading [B] on every leaf."""
     featL, atlasL, axyL, deltaL, featR, atlasR, offsR = extract_orb_stereo(img_left, img_right, cfg.orb)
-    sm = stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offsR, cfg.camera, cfg.orb)
+    with span("stereo"):
+        sm = stereo_match(featL, featR, atlasL, axyL, deltaL, atlasR, offsR, cfg.camera, cfg.orb)
     return Frame(
         xy=undistort_points(cfg.camera, featL.xy),
         response=featL.response,

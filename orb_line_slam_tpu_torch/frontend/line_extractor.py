@@ -26,6 +26,7 @@ from ..ops.hamming import hamming_matrix, knn2
 from ..ops.image import bilinear_sample, sobel_gradients
 from ..ops.lbd import lbd_descriptors
 from ..ops.lines import detect_lines, merge_collinear
+from ..utils.timing import span
 
 
 class LineFeatures(NamedTuple):
@@ -96,10 +97,19 @@ def build_line_features(img_left: torch.Tensor, img_right: torch.Tensor, cam: Ca
     launches do not grow with B."""
     if img_left.dim() == 3:
         return torch.func.vmap(lambda l, r: build_line_features(l, r, cam, cfg))(img_left, img_right)
-    imgs = torch.stack([img_left, img_right]).to(torch.float32)
-    gxs, gys = sobel_gradients(imgs)
-    det = merge_collinear(detect_lines(imgs, n_lines=cfg.n_lines, grads=(gxs, gys)))
-    descs = lbd_descriptors(imgs, det.p0, det.p1, det.valid, grads=(gxs, gys))
+    with span("line_detect"):
+        imgs = torch.stack([img_left, img_right]).to(torch.float32)
+        gxs, gys = sobel_gradients(imgs)
+        det = merge_collinear(detect_lines(imgs, n_lines=cfg.n_lines, grads=(gxs, gys)))
+    with span("line_describe"):
+        descs = lbd_descriptors(imgs, det.p0, det.p1, det.valid, grads=(gxs, gys))
+    with span("line_stereo"):
+        return _stereo_lines(imgs, det, descs, cam)
+
+
+def _stereo_lines(imgs, det, descs, cam: CameraIntrinsics) -> LineFeatures:
+    """The left lines of ``det`` (a batch of left and right detections)
+    with endpoint depths from their matched right segments."""
     ll = type(det)(*(a[0] for a in det))
     lr = type(det)(*(a[1] for a in det))
     descL, descR = descs[0], descs[1]

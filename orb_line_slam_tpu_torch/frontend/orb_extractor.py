@@ -30,6 +30,7 @@ from ..ops.fast import fast_score_map, nms3x3
 from ..ops.image import build_pyramid, pyramid_atlas
 from ..ops.patches import gather_patch_tiles
 from ..ops.topk_grid import select_topk_grid
+from ..utils.timing import span
 
 
 class FrameFeatures(NamedTuple):
@@ -128,9 +129,11 @@ def _level_offsets(levels) -> list[int]:
 def _detect_image(image: torch.Tensor, cfg: OrbConfig):
     """Pyramid atlas [H_atlas, W] and per-level detection of one [H, W]
     image: (atlas, xy, axy, resp, octave, valid, delta)."""
-    levels = build_pyramid(image.to(torch.float32), cfg.n_levels, cfg.scale_factor)
-    atlas, _ = pyramid_atlas(levels)
-    return (atlas, *_detect_all_levels(levels, _level_offsets(levels), cfg))
+    with span("pyramid"):
+        levels = build_pyramid(image.to(torch.float32), cfg.n_levels, cfg.scale_factor)
+        atlas, _ = pyramid_atlas(levels)
+    with span("detect"):
+        return (atlas, *_detect_all_levels(levels, _level_offsets(levels), cfg))
 
 
 def extract_orb_with_tiles(image: torch.Tensor, cfg: OrbConfig):
@@ -153,7 +156,8 @@ def extract_orb(image: torch.Tensor, cfg: OrbConfig) -> FrameFeatures:
     made on the card.  On the CPU it equals ``extract_orb_with_tiles(...)[0]``
     bit for bit."""
     atlas, xy, axy, resp, octv, valid, deltas = _detect_image(image, cfg)
-    angles, desc = describe_keypoints(atlas[None], axy[None].contiguous(), deltas[None].contiguous())
+    with span("describe"):
+        angles, desc = describe_keypoints(atlas[None], axy[None].contiguous(), deltas[None].contiguous())
     return FrameFeatures(xy=xy, response=resp, angle=angles, octave=octv, desc=desc, valid=valid)
 
 
@@ -171,12 +175,15 @@ def extract_orb_stereo(img_left: torch.Tensor, img_right: torch.Tensor, cfg: Orb
     if single:
         img_left, img_right = img_left[None], img_right[None]
     b = img_left.shape[0]
-    img = torch.stack([img_left, img_right]).to(torch.float32).reshape(2 * b, *img_left.shape[1:])
-    levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
-    atlas, offs = pyramid_atlas(levels)
-    xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, _level_offsets(levels), cfg)
-    axy = axy.contiguous()
-    angles, desc = describe_keypoints(atlas, axy, deltas.contiguous())
+    with span("pyramid"):
+        img = torch.stack([img_left, img_right]).to(torch.float32).reshape(2 * b, *img_left.shape[1:])
+        levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
+        atlas, offs = pyramid_atlas(levels)
+    with span("detect"):
+        xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, _level_offsets(levels), cfg)
+    with span("describe"):
+        axy = axy.contiguous()
+        angles, desc = describe_keypoints(atlas, axy, deltas.contiguous())
     n = cfg.n_features
     angles, desc = angles.reshape(2 * b, n), desc.reshape(2 * b, n, 32)
 

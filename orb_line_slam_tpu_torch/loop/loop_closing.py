@@ -86,7 +86,7 @@ from ..parallel.sharded_ba import distributed_ba_cg, shard_gba_pack, unshard_res
 from ..slam_map.fuse import fuse_into_keyframe
 from ..slam_map.keyframe_db import KeyFrameDatabase
 from ..slam_map.map_store import MapStore
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, Tracer
 from ..utils.worker import Worker
 from .vocabulary import Vocabulary
 
@@ -141,7 +141,8 @@ def sharded_gauge(cam_fixed: np.ndarray) -> np.ndarray:
 
 
 class LoopCloser:
-    def __init__(self, cfg: SlamConfig, store: MapStore, voc: Vocabulary, *, device, mesh=None):
+    def __init__(self, cfg: SlamConfig, store: MapStore, voc: Vocabulary, *, device, mesh=None,
+                 tracer: Tracer | None = None):
         self.cfg = cfg
         self.map = store
         self.voc = voc
@@ -170,10 +171,12 @@ class LoopCloser:
         # Monocular maps drift in scale, so the loop Sim3 must estimate
         # it; stereo/RGB-D pin s=1.
         self.fix_scale = True
-        # Host time of the stages (detect, sim3, correct, essential_graph,
-        # gba): totals in `timing`, and the split of each closing
-        # keyframe's event in `closure_ms`; and what the global BAs were.
-        self.timing = StageTimer()
+        # Host time of the stages (bow, loop_query with detect and sim3,
+        # correct, essential_graph, gba): totals in `timing` (spans and
+        # counters go to ``tracer``), and the split of each closing
+        # keyframe's event in `closure_ms`, from the spans of the query or
+        # the correction; and what the global BAs were.
+        self.timing = StageTimer(tracer)
         self.closure_ms: list[dict] = []
         self.n_gba_applied = 0
         self.last_gba_solver = None   # "dense", "dense+lines", "cg" or "sharded_cg"
@@ -230,10 +233,9 @@ class LoopCloser:
             return applied
         valid = store.kf_feat_valid[kf_id] & (store.kf_obs_lm[kf_id] >= 0)
         prev = self._pending_bow
-        self._pending_bow = (
-            kf_id, int(store.kf_gen[kf_id]),
-            self.voc.dispatch_transform(self._t(store.kf_desc[kf_id])), valid,
-        )
+        with self.timing.stage("bow"):
+            words = self.voc.dispatch_transform(self._t(store.kf_desc[kf_id]))
+        self._pending_bow = (kf_id, int(store.kf_gen[kf_id]), words, valid)
         return self._process_resolved(prev, run_gba)
 
     # ------------------------------------------------------------------
@@ -248,7 +250,8 @@ class LoopCloser:
                 return
             valid = store.kf_feat_valid[kf_id] & (store.kf_obs_lm[kf_id] >= 0)
             desc = store.kf_desc[kf_id].copy()
-        words = self.voc.dispatch_transform(self._t(desc)).cpu().numpy()
+        with self.timing.stage("bow"):
+            words = self.voc.dispatch_transform(self._t(desc)).cpu().numpy()
         with self._db_lock:
             if not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen:
                 return
@@ -259,21 +262,19 @@ class LoopCloser:
             or self._pending_loop is not None
         ):
             return
-        t0 = time.perf_counter()
-        with store.lock, self._db_lock:
-            cand = self._detect(kf_id)
-        t1 = time.perf_counter()
-        self.timing.add("detect", t1 - t0)
-        if cand is None or not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen:
-            return
-        with store.lock:
-            cand_gen = int(store.kf_gen[cand])
-            view = _MapSnapshot(store, (kf_id, cand))
-        ok, sim = self._compute_sim3(kf_id, cand, view=view)
-        t2 = time.perf_counter()
-        self.timing.add("sim3", t2 - t1)
+        self.timing.count("loop_queries_due")
+        with self.timing.stage("loop_query", children=True) as query:
+            with self.timing.stage("detect"), store.lock, self._db_lock:
+                cand = self._detect(kf_id)
+            if cand is None or not store.kf_valid[kf_id] or store.kf_gen[kf_id] != gen:
+                return
+            with self.timing.stage("sim3"):
+                with store.lock:
+                    cand_gen = int(store.kf_gen[cand])
+                    view = _MapSnapshot(store, (kf_id, cand))
+                ok, sim = self._compute_sim3(kf_id, cand, view=view)
         if ok:
-            self._pending_loop_ms = {"detect": (t1 - t0) * 1e3, "sim3": (t2 - t1) * 1e3}
+            self._pending_loop_ms = query.children_ms()
             self._pending_loop = (kf_id, gen, cand, cand_gen, sim, count)
 
     def _check_detections(self):
@@ -297,12 +298,9 @@ class LoopCloser:
             or not store.kf_valid[cand] or store.kf_gen[cand] != cand_gen
         ):
             return False
-        before = dict(self.timing.acc)
-        with store.lock:
+        with self.timing.stage("closure", children=True) as closure, store.lock:
             self._correct(kf_id, cand, sim, run_gba=run_gba)
-        self.closure_ms.append({"kf": int(kf_id), **self._pending_loop_ms, **{
-            k: (self.timing.acc[k] - before.get(k, 0.0)) * 1e3 for k in ("correct", "essential_graph", "gba")
-            if k in self.timing.acc}})
+        self.closure_ms.append({"kf": int(kf_id), **self._pending_loop_ms, **closure.children_ms()})
         self.last_loop_count = self.kf_counter
         self.last_closed_kf = kf_id
         return True
@@ -334,25 +332,26 @@ class LoopCloser:
         pkf, pgen, words_dev, pvalid = prev
         if not store.kf_valid[pkf] or store.kf_gen[pkf] != pgen:
             return False  # culled while pending
-        self.db.add_words(pkf, words_dev.cpu().numpy(), pvalid)
+        with self.timing.stage("bow"):
+            self.db.add_words(pkf, words_dev.cpu().numpy(), pvalid)
         if (
             store.n_keyframes() < 6
             or self.kf_counter - self.last_loop_count < 10
         ):
             return False
 
-        before = dict(self.timing.acc)
-        with self.timing.stage("detect"):
-            cand = self._detect(pkf)
-        if cand is None:
-            return False
-        with self.timing.stage("sim3"):
-            ok, sim = self._compute_sim3(pkf, cand)
-        if not ok:
-            return False
-        self._correct(pkf, cand, sim, run_gba=run_gba)
-        self.closure_ms.append({"kf": int(pkf), **{
-            k: (v - before.get(k, 0.0)) * 1e3 for k, v in self.timing.acc.items()}})
+        self.timing.count("loop_queries_due")
+        with self.timing.stage("loop_query", children=True) as query:
+            with self.timing.stage("detect"):
+                cand = self._detect(pkf)
+            if cand is None:
+                return False
+            with self.timing.stage("sim3"):
+                ok, sim = self._compute_sim3(pkf, cand)
+            if not ok:
+                return False
+            self._correct(pkf, cand, sim, run_gba=run_gba)
+        self.closure_ms.append({"kf": int(pkf), **query.children_ms()})
         self.last_loop_count = self.kf_counter
         self.last_closed_kf = pkf
         return True
@@ -386,6 +385,7 @@ class LoopCloser:
         if not cands:
             self.consistent_groups = []
             return None
+        self.timing.count("loop_queries_with_candidates")
 
         # Covisibility-consistency over 3 consecutive KFs
         # (LoopClosing::DetectLoop's mvConsistentGroups logic).

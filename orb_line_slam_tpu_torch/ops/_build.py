@@ -5,7 +5,9 @@ whose last argument is the stream and which returns ``cudaGetLastError()``.
 It is compiled with nvcc for sm_90a into ``csrc/build/lib<name>.so`` at
 first use (rebuilt when the source is newer), loaded with ctypes, and its
 function pointer and ``argtypes`` are resolved once.  A failed build
-raises with the compiler's output; nothing falls back.
+raises with the compiler's output; nothing falls back.  ``builds`` records
+each build and load of the process: which kernel, whether nvcc ran, and
+the seconds it took.
 """
 
 from __future__ import annotations
@@ -19,10 +21,15 @@ from pathlib import Path
 
 import torch
 
+from ..utils.timing import span
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve")
 _FUNCTIONS: dict[str, ctypes._CFuncPtr] = {}
+# {"kernel", "step": "nvcc" (built), "cached" (library up to date) or
+# "load" (the library opened), "s"} of each build and load, in order.
+builds: list[dict] = []
 
 
 def _nvcc() -> str:
@@ -73,6 +80,7 @@ def build(names=SOURCES, extra_flags=()) -> dict[str, tuple[float, str]]:
         for name, proc, tmp, so in started:
             output = _finish_build(name, proc, tmp, so)
             done[name] = (time.perf_counter() - t0, output)
+            builds.append({"kernel": name, "step": "cached" if proc is None else "nvcc", "s": done[name][0]})
     finally:
         for _, proc, _, _ in started:       # a failed build leaves no compiler running
             if proc is not None and proc.poll() is None:
@@ -90,11 +98,14 @@ def kernel(name: str, argtypes) -> ctypes._CFuncPtr:
     on the first call, then cached); ``argtypes`` excludes the stream."""
     fn = _FUNCTIONS.get(name)
     if fn is None:
-        build((name,))
-        fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
-        fn.argtypes = [*argtypes, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FUNCTIONS[name] = fn
+        with span("kernel_load"):
+            build((name,))
+            t0 = time.perf_counter()
+            fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            _FUNCTIONS[name] = fn
+            builds.append({"kernel": name, "step": "load", "s": time.perf_counter() - t0})
     return fn
 
 

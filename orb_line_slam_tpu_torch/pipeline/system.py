@@ -36,6 +36,7 @@ from ..eval.trajectory import save_trajectory_kitti, save_trajectory_tum
 from ..frontend.frame import build_rgbd_frame
 from ..loop.loop_closing import LoopCloser
 from ..loop.vocabulary import Vocabulary
+from ..utils.timing import Tracer
 from .tracking import Tracker, checked_device
 
 
@@ -46,7 +47,10 @@ class System:
                  device: str | torch.device = "cuda"):
         self.cfg = settings if isinstance(settings, SlamConfig) else load_settings(settings)
         self.device = checked_device(device)
-        self.tracker = Tracker(self.cfg, self.device)
+        # The one tracer of the tracker's and the loop closer's timers:
+        # spans while enabled, counters of the System's life.
+        self.tracer = Tracer()
+        self.tracker = Tracker(self.cfg, self.device, self.tracer)
         self.voc: Optional[Vocabulary] = None
         if isinstance(vocabulary, Vocabulary):
             self.voc = vocabulary
@@ -79,10 +83,12 @@ class System:
         """Feed a grayscale image (uint8 [H, W]) and its registered depth
         map (float32 [H, W], m); returns the 4x4 Tcw (System::TrackRGBD)."""
         tr = self.tracker
-        tr.frame_id += 1
-        with tr.timing.stage("frontend"):
-            frame = build_rgbd_frame(tr._to_device(img), tr._to_device(depth), self.cfg)
-        return tr._track(frame, None, timestamp)
+        with tr._next_frame():
+            with tr.timing.stage("upload"):
+                img, depth = tr._to_device(img), tr._to_device(depth)
+            with tr.timing.stage("frontend"):
+                frame = build_rgbd_frame(img, depth, self.cfg)
+            return tr._track(frame, None, timestamp)
 
     # ------------------------------------------------------------------
     def _on_keyframe(self, kf_id: int):
@@ -103,10 +109,12 @@ class System:
             # depth 4 -> 10^4 leaves: a 10^3-word tree aliases heavily on
             # self-similar scenes (a failing Sim3 attempt at nearly every
             # keyframe, wrong winners at true revisits).
-            self.voc = Vocabulary.train(corpus, k=10, depth=4, seed=0)
+            with self.tracker.timing.stage("vocab_train"):
+                self.voc = Vocabulary.train(corpus, k=10, depth=4, seed=0)
             self._voc_corpus = []
         if self.loop_closer is None:
-            self.loop_closer = LoopCloser(self.cfg, self.tracker.map, self.voc, device=self.device)
+            self.loop_closer = LoopCloser(self.cfg, self.tracker.map, self.voc, device=self.device,
+                                          tracer=self.tracer)
             self.loop_closer.gba_async = self.gba_async
             self.loop_closer.async_detect = self.async_loop
             # A monocular map drifts in scale: the loop's Sim3 estimates it
@@ -154,7 +162,7 @@ class System:
         self.tracker.stop()
         if self.loop_closer is not None:
             self.loop_closer.stop()
-        self.tracker = Tracker(self.cfg, self.device)
+        self.tracker = Tracker(self.cfg, self.device, self.tracer)
         self.tracker.on_keyframe = self._on_keyframe
         self.loop_closer = None
 

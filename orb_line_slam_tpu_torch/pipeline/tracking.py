@@ -76,7 +76,7 @@ from ..slam_map.fuse import dispatch_fuse, apply_fuse
 from ..slam_map.line_mapping import create_lines_two_view, fuse_lines_into_keyframe
 from ..slam_map.map_store import MapStore
 from ..slam_map.triangulation import apply_triangulation, dispatch_triangulation
-from ..utils.timing import StageTimer
+from ..utils.timing import StageTimer, Tracer, span
 from ..utils.worker import Worker
 from .track_step import MapMirror, TrackOut, override_carry, remap_stats, track_step, zero_stats
 
@@ -124,27 +124,34 @@ def _solve_local_ba(cfg: SlamConfig, device, pack, lpack, line0):
     the point BA, or the joint point+line BA when ``lpack`` holds line
     observations (``line0`` = their initial orthonormal parameters and
     validity).  Runs on the tracking thread, or deferred on the mapping
-    worker.  Returns (host result, stage name, seconds)."""
+    worker, inside the span ``_ba_stage`` names.  Returns (host result,
+    stage name, seconds)."""
     t0 = time.perf_counter()
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
-    point_args = tuple(t(pack[k]) for k in ("R", "t", "cam_fixed", "points", "point_valid", "obs_cam",
-                                             "obs_lm", "obs_uvur", "obs_oct", "obs_valid"))
-    if lpack is None:
-        res = bundle_adjust(*point_args, cfg.camera, cfg.orb.scale_factor)
-    else:
-        U0, w0, lval = line0
-        res = bundle_adjust_pl(
-            *point_args, t(U0), t(w0), t(lval),
-            *(t(lpack[k]) for k in ("lobs_cam", "lobs_ln", "lobs_a", "lobs_b")),
-            torch.zeros(len(lpack["lobs_cam"]), dtype=torch.int32, device=device), t(lpack["lobs_valid"]),
-            cfg.camera, cfg.orb.scale_factor,
-        )
-    res = type(res)(*(x.cpu().numpy() for x in res))
-    return res, ("local_ba" if lpack is None else "joint_ba"), time.perf_counter() - t0
+    with span("ba_upload"):
+        point_args = tuple(t(pack[k]) for k in ("R", "t", "cam_fixed", "points", "point_valid", "obs_cam",
+                                                 "obs_lm", "obs_uvur", "obs_oct", "obs_valid"))
+        if lpack is not None:
+            U0, w0, lval = line0
+            line_args = (t(U0), t(w0), t(lval), *(t(lpack[k]) for k in ("lobs_cam", "lobs_ln", "lobs_a", "lobs_b")),
+                         torch.zeros(len(lpack["lobs_cam"]), dtype=torch.int32, device=device),
+                         t(lpack["lobs_valid"]))
+    with span("ba_solve"):
+        if lpack is None:
+            res = bundle_adjust(*point_args, cfg.camera, cfg.orb.scale_factor)
+        else:
+            res = bundle_adjust_pl(*point_args, *line_args, cfg.camera, cfg.orb.scale_factor)
+    with span("ba_fetch"):
+        res = type(res)(*(x.cpu().numpy() for x in res))
+    return res, _ba_stage(lpack), time.perf_counter() - t0
+
+
+def _ba_stage(lpack) -> str:
+    return "local_ba" if lpack is None else "joint_ba"
 
 
 class Tracker:
-    def __init__(self, cfg: SlamConfig, device="cuda"):
+    def __init__(self, cfg: SlamConfig, device="cuda", tracer: Optional[Tracer] = None):
         self.cfg = cfg
         self.device = checked_device(device)
         self.map = MapStore(cfg.map, cfg.orb.n_features, n_lines=cfg.lines.n_lines if cfg.lines.enabled else 0)
@@ -195,37 +202,48 @@ class Tracker:
         # timing stage "ba_wait" holds their sum)
         self.ba_waits: list[tuple[int, float]] = []
         self.joint_ba_lobs: list[int] = []  # line observations of each joint BA applied
-        self.timing = StageTimer()
+        # Host time of the stages; spans and counters go to ``tracer``
+        # (the System's, shared with its loop closer).
+        self.timing = StageTimer(tracer)
 
     # ------------------------------------------------------------------
     def _to_device(self, img) -> torch.Tensor:
         return torch.as_tensor(np.asarray(img)).to(self.device)
 
+    def _next_frame(self):
+        """Start a new frame: its id, and the span ``frame`` around it."""
+        self.frame_id += 1
+        self.timing.tracer.frame_id = self.frame_id
+        return self.timing.stage("frame")
+
     def process_stereo(self, img_left, img_right, timestamp: float = 0.0):
         """Track one rectified stereo pair; returns the 4x4 Tcw."""
-        self.frame_id += 1
-        left, right = self._to_device(img_left), self._to_device(img_right)
-        with self.timing.stage("frontend"):
-            frame = build_stereo_frame(left, right, self.cfg)
-        lines = None
-        if self.cfg.lines.enabled:
-            with self.timing.stage("line_frontend"):
-                lines = build_line_features(left, right, self.cfg.camera, self.cfg.lines)
-        return self._track(frame, lines, timestamp)
+        with self._next_frame():
+            with self.timing.stage("upload"):
+                left, right = self._to_device(img_left), self._to_device(img_right)
+            with self.timing.stage("frontend"):
+                frame = build_stereo_frame(left, right, self.cfg)
+            lines = None
+            if self.cfg.lines.enabled:
+                with self.timing.stage("line_frontend"):
+                    lines = build_line_features(left, right, self.cfg.camera, self.cfg.lines)
+            return self._track(frame, lines, timestamp)
 
     def process_mono(self, img, timestamp: float = 0.0):
         """Track one monocular image (TrackMonocular); the map is
         bootstrapped by the two-view initializer (scale-free).  Returns the
         4x4 Tcw, the identity until initialization succeeds."""
-        self.frame_id += 1
-        self.is_mono = True
-        with self.timing.stage("frontend"):
-            frame = build_mono_frame(self._to_device(img), self.cfg)
-        if self.state == "NOT_INITIALIZED":
-            self._try_mono_initialize(frame, timestamp)
-            self._record(self.frame_id, timestamp, lost=(self.state != "OK"))
-            return self.current_pose()
-        return self._track(frame, None, timestamp)
+        with self._next_frame():
+            self.is_mono = True
+            with self.timing.stage("upload"):
+                img = self._to_device(img)
+            with self.timing.stage("frontend"):
+                frame = build_mono_frame(img, self.cfg)
+            if self.state == "NOT_INITIALIZED":
+                self._try_mono_initialize(frame, timestamp)
+                self._record(self.frame_id, timestamp, lost=(self.state != "OK"))
+                return self.current_pose()
+            return self._track(frame, None, timestamp)
 
     def flush(self):
         """Join the mapping chains and the deferred local BA (the last
@@ -250,10 +268,11 @@ class Tracker:
             return self.current_pose()
         with self.timing.stage("track_step"):
             out = self._dispatch_track_step(frame, lines)
-        self._consume(_Entry(
-            fid=self.frame_id, ts=timestamp, frame=frame, prev_frame=self._prev_for_dispatch,
-            lines=lines, out=out, snap_host=self._mir["snap_host"], ln_ids=self._mir["ln_ids"],
-        ))
+        with self.timing.stage("track_consume"):
+            self._consume(_Entry(
+                fid=self.frame_id, ts=timestamp, frame=frame, prev_frame=self._prev_for_dispatch,
+                lines=lines, out=out, snap_host=self._mir["snap_host"], ln_ids=self._mir["ln_ids"],
+            ))
         return self.current_pose()
 
     def _dispatch_inputs(self, lines: Optional[LineFeatures]):
@@ -298,9 +317,10 @@ class Tracker:
     def _dispatch_track_step(self, frame: Frame, lines: Optional[LineFeatures]) -> TrackOut:
         mir, last_frame, args = self._dispatch_inputs(lines)
         has_lines = mir["has_lines"] and lines is not None
-        out = track_step(frame, last_frame, mir["pt"], *args, lines if has_lines else None,
-                         mir["ln_start"], mir["ln_end"], mir["ln_desc"], mir["ln_valid"],
-                         cfg=self.cfg, has_lines=has_lines)
+        with self.timing.stage("track_step_call"):
+            out = track_step(frame, last_frame, mir["pt"], *args, lines if has_lines else None,
+                             mir["ln_start"], mir["ln_end"], mir["ln_desc"], mir["ln_valid"],
+                             cfg=self.cfg, has_lines=has_lines)
         self._prev_for_dispatch = last_frame
         self._carry = (frame, out)
         return out
@@ -363,73 +383,72 @@ class Tracker:
         keyframe's feature table and landmark slots, the local-map
         snapshot (covisible neighbourhood of the reference keyframe) and
         the line table."""
-        _t0 = time.perf_counter()
-        m, cfg, dev, k = self.map, self.cfg, self.device, self.ref_kf
-        cap = cfg.map.local_points
-        ids, _ = m.covisible_keyframes(k, min_weight=1, max_n=20)
-        obs = m.kf_obs_lm[[k] + [int(i) for i in ids]]
-        lm = np.unique(obs[obs >= 0])
-        lm = lm[m.pt_valid[lm]]
-        if len(lm) > cap:
-            lm = lm[-cap:]  # keep the newest landmarks
-        snap_ids = np.full(cap, -1, np.int32)
-        snap_ids[: len(lm)] = lm
-        m.pop_dirty_pts()  # the full upload below covers every dirty row
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-        pt = MapMirror(
-            pos=t(m.pt_pos), desc=t(m.pt_desc), oct=t(m.pt_oct), valid=t(m.pt_valid),
-            maxd=t(m.pt_max_dist), mind=t(m.pt_min_dist), normal=t(m.pt_normal),
-        )
-        if self._ref_frame_dev is not None and self._ref_frame_kf == k:
-            fr = self._ref_frame_dev
-            ref_xy, ref_desc, ref_angle = fr.xy, fr.desc, fr.angle
-        else:
-            ref_xy, ref_desc, ref_angle = t(m.kf_xy[k]), t(m.kf_desc[k]), t(m.kf_angle[k])
-        # Line table: n_lines rows once the map holds a valid line, else 8.
-        has_lines = cfg.lines.enabled and lines is not None and bool(m.ln_valid.any())
-        Lcap = cfg.lines.n_lines if has_lines else 8
-        ln_starts = np.zeros((Lcap, 3), np.float32)
-        ln_ends = np.ones((Lcap, 3), np.float32)
-        ln_descs = np.zeros((Lcap, 32), np.uint8)
-        ln_valid = np.zeros(Lcap, bool)
-        ln_ids = None
-        if has_lines:
-            ln_ids = np.nonzero(m.ln_valid)[0][:Lcap]
-            nl = len(ln_ids)
-            ln_starts[:nl] = m.ln_start[ln_ids]
-            ln_ends[:nl] = m.ln_end[ln_ids]
-            ln_descs[:nl] = m.ln_desc[ln_ids]
-            ln_valid[:nl] = True
-        # The snapshot is changing: re-index the found/visible carries
-        # (points and lines) from old slots to new so counts stay with
-        # their landmarks.  As in the JAX code, nothing is re-indexed
-        # when the line capacity switches (the line carries restart).
-        if self._carry is not None and self._mir is not None:
-            old, old_ln = self._mir["snap_host"], self._mir["ln_ids"]
-            Lcap_old = self._mir["ln_valid"].shape[0]
-            same_pts = len(old) == len(lm) and np.array_equal(old, lm)
-            same_lns = Lcap_old == Lcap and (old_ln is None) == (ln_ids is None) and (
-                old_ln is None or (len(old_ln) == len(ln_ids) and np.array_equal(old_ln, ln_ids)))
-            if not (same_pts and same_lns) and Lcap_old == Lcap:
-                lookup = np.full(m.P, -1, np.int32)
-                lookup[old] = np.arange(len(old), dtype=np.int32)
-                remap = np.full(cap, -1, np.int32)
-                remap[: len(lm)] = lookup[lm]
-                ln_remap = np.full(Lcap, -1, np.int32)
-                if ln_ids is not None and old_ln is not None and len(old_ln):
-                    llk = np.full(m.L, -1, np.int32)
-                    llk[old_ln] = np.arange(len(old_ln), dtype=np.int32)
-                    ln_remap[: len(ln_ids)] = llk[ln_ids]
-                self._carry = (self._carry[0], remap_stats(self._carry[1], t(remap), t(ln_remap)))
-        self._mir = {
-            "pt": pt, "ref_xy": ref_xy, "ref_desc": ref_desc, "ref_angle": ref_angle,
-            "ref_slots": t(m.kf_obs_lm[k].astype(np.int32)), "snap_ids": t(snap_ids),
-            "snap_host": lm, "ref_kf": k,
-            "ln_start": t(ln_starts), "ln_end": t(ln_ends), "ln_desc": t(ln_descs),
-            "ln_valid": t(ln_valid), "ln_ids": ln_ids, "has_lines": has_lines,
-        }
-        self._mirror_dirty = False
-        self.timing.add("mirror_refresh", time.perf_counter() - _t0)
+        with self.timing.stage("mirror_refresh"):
+            m, cfg, dev, k = self.map, self.cfg, self.device, self.ref_kf
+            cap = cfg.map.local_points
+            ids, _ = m.covisible_keyframes(k, min_weight=1, max_n=20)
+            obs = m.kf_obs_lm[[k] + [int(i) for i in ids]]
+            lm = np.unique(obs[obs >= 0])
+            lm = lm[m.pt_valid[lm]]
+            if len(lm) > cap:
+                lm = lm[-cap:]  # keep the newest landmarks
+            snap_ids = np.full(cap, -1, np.int32)
+            snap_ids[: len(lm)] = lm
+            m.pop_dirty_pts()  # the full upload below covers every dirty row
+            t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+            pt = MapMirror(
+                pos=t(m.pt_pos), desc=t(m.pt_desc), oct=t(m.pt_oct), valid=t(m.pt_valid),
+                maxd=t(m.pt_max_dist), mind=t(m.pt_min_dist), normal=t(m.pt_normal),
+            )
+            if self._ref_frame_dev is not None and self._ref_frame_kf == k:
+                fr = self._ref_frame_dev
+                ref_xy, ref_desc, ref_angle = fr.xy, fr.desc, fr.angle
+            else:
+                ref_xy, ref_desc, ref_angle = t(m.kf_xy[k]), t(m.kf_desc[k]), t(m.kf_angle[k])
+            # Line table: n_lines rows once the map holds a valid line, else 8.
+            has_lines = cfg.lines.enabled and lines is not None and bool(m.ln_valid.any())
+            Lcap = cfg.lines.n_lines if has_lines else 8
+            ln_starts = np.zeros((Lcap, 3), np.float32)
+            ln_ends = np.ones((Lcap, 3), np.float32)
+            ln_descs = np.zeros((Lcap, 32), np.uint8)
+            ln_valid = np.zeros(Lcap, bool)
+            ln_ids = None
+            if has_lines:
+                ln_ids = np.nonzero(m.ln_valid)[0][:Lcap]
+                nl = len(ln_ids)
+                ln_starts[:nl] = m.ln_start[ln_ids]
+                ln_ends[:nl] = m.ln_end[ln_ids]
+                ln_descs[:nl] = m.ln_desc[ln_ids]
+                ln_valid[:nl] = True
+            # The snapshot is changing: re-index the found/visible carries
+            # (points and lines) from old slots to new so counts stay with
+            # their landmarks.  As in the JAX code, nothing is re-indexed
+            # when the line capacity switches (the line carries restart).
+            if self._carry is not None and self._mir is not None:
+                old, old_ln = self._mir["snap_host"], self._mir["ln_ids"]
+                Lcap_old = self._mir["ln_valid"].shape[0]
+                same_pts = len(old) == len(lm) and np.array_equal(old, lm)
+                same_lns = Lcap_old == Lcap and (old_ln is None) == (ln_ids is None) and (
+                    old_ln is None or (len(old_ln) == len(ln_ids) and np.array_equal(old_ln, ln_ids)))
+                if not (same_pts and same_lns) and Lcap_old == Lcap:
+                    lookup = np.full(m.P, -1, np.int32)
+                    lookup[old] = np.arange(len(old), dtype=np.int32)
+                    remap = np.full(cap, -1, np.int32)
+                    remap[: len(lm)] = lookup[lm]
+                    ln_remap = np.full(Lcap, -1, np.int32)
+                    if ln_ids is not None and old_ln is not None and len(old_ln):
+                        llk = np.full(m.L, -1, np.int32)
+                        llk[old_ln] = np.arange(len(old_ln), dtype=np.int32)
+                        ln_remap[: len(ln_ids)] = llk[ln_ids]
+                    self._carry = (self._carry[0], remap_stats(self._carry[1], t(remap), t(ln_remap)))
+            self._mir = {
+                "pt": pt, "ref_xy": ref_xy, "ref_desc": ref_desc, "ref_angle": ref_angle,
+                "ref_slots": t(m.kf_obs_lm[k].astype(np.int32)), "snap_ids": t(snap_ids),
+                "snap_host": lm, "ref_kf": k,
+                "ln_start": t(ln_starts), "ln_end": t(ln_ends), "ln_desc": t(ln_descs),
+                "ln_valid": t(ln_valid), "ln_ids": ln_ids, "has_lines": has_lines,
+            }
+            self._mirror_dirty = False
 
     # ------------------------------------------------------------------
     def current_pose(self) -> np.ndarray:
@@ -512,6 +531,7 @@ class Tracker:
         with self.map.lock:
             kf0 = self.map.add_keyframe(refh, np.eye(3, dtype=np.float32), np.zeros(3, np.float32), ref_id, ref_ts)
             kf1 = self.map.add_keyframe(fh, R2, t2, self.frame_id, timestamp, parent=kf0)
+            self.timing.count("keyframes", 2)
             rows = np.nonzero(inl)[0]
             ids = self.map.add_points(pts[rows], refh.desc[rows], refh.octave[rows], kf0, rows)
             self.map.kf_obs_lm[kf1, idx[rows[: len(ids)]]] = ids
@@ -542,6 +562,7 @@ class Tracker:
         self.R = np.eye(3, dtype=np.float32)
         self.t = np.zeros(3, np.float32)
         kf = self.map.add_keyframe(fh, self.R, self.t, self.frame_id, timestamp)
+        self.timing.count("keyframes")
         idx = np.nonzero(fh.valid & (fh.depth > 0))[0]
         pts_c = nbackproject(self.cfg.camera, fh.xy, fh.depth)
         ids = self.map.add_points(pts_c[idx], fh.desc[idx], fh.octave[idx], kf, idx)
@@ -680,10 +701,8 @@ class Tracker:
         return (c1a or c1b or c1c) and c2
 
     def _create_keyframe(self, e: _Entry, n_inliers: int = 0):
-        _t0 = time.perf_counter()
-        with self.map.lock:
+        with self.timing.stage("kf_event_total"), self.map.lock:
             self._create_keyframe_locked(e, n_inliers)
-        self.timing.add("kf_event_total", time.perf_counter() - _t0)
 
     def _create_keyframe_locked(self, e: _Entry, n_inliers: int = 0):
         cfg = self.cfg
@@ -709,6 +728,7 @@ class Tracker:
         pos = assoc >= 0
         assoc[pos] = np.where(self.map.pt_valid[assoc[pos]], assoc[pos], -1)
         kf = self.map.add_keyframe(fh, self.R, self.t, e.fid, e.ts, lm_assoc=assoc, parent=self.ref_kf)
+        self.timing.count("keyframes")
         # New landmarks from stereo depth for unassociated features: the
         # close ones, or the 100 closest (Tracking::CreateNewKeyFrame).
         depth = fh.depth
@@ -847,14 +867,20 @@ class Tracker:
         if defer:
             if self._mapping_worker is None or not self._mapping_worker.is_alive():
                 self._mapping_worker = Worker("local-mapping", self.device)
-            fut = self._mapping_worker.submit(_solve_local_ba, self.cfg, self.device, pack, lpack, line0)
+            fut = self._mapping_worker.submit(self._solve_ba, pack, lpack, line0)
             self._pending_ba = (pack, lpack, fut, center_kf)
             return
-        self._apply_ba(pack, lpack, _solve_local_ba(self.cfg, self.device, pack, lpack, line0), center_kf, ride=True)
+        self._apply_ba(pack, lpack, self._solve_ba(pack, lpack, line0), center_kf, ride=True)
+
+    def _solve_ba(self, pack, lpack, line0):
+        """``_solve_local_ba`` in its span (``local_ba`` or ``joint_ba``),
+        on the thread that runs it."""
+        self.timing.count("local_ba_solved")
+        with self.timing.stage(_ba_stage(lpack)):
+            return _solve_local_ba(self.cfg, self.device, pack, lpack, line0)
 
     def _apply_ba(self, pack, lpack, solved, center_kf, ride=False):
-        res, stage, seconds = solved
-        self.timing.add(stage, seconds)
+        res = solved[0]
         self.n_local_ba += 1
         with self.timing.stage("ba_apply"), self.map.lock:
             self.map.apply_ba_result(pack, res)
@@ -882,13 +908,10 @@ class Tracker:
             return
         pack, lpack, fut, center_kf = pending
         self._pending_ba = None
-        t0 = time.perf_counter()
-        solved = fut.result()
-        waited = time.perf_counter() - t0
-        self.timing.add("ba_wait", waited)
-        self.ba_waits.append((self.frame_id, waited))
+        with self.timing.stage("ba_wait") as wait:
+            solved = fut.result()
+        self.ba_waits.append((self.frame_id, wait.seconds))
         if pack["pose_epoch"] != getattr(self.map, "pose_epoch", 0):
-            self.timing.add(solved[1], solved[2])
             self.n_ba_stale += 1
             return
         self.ba_lag_frames.append(self.frame_id - pack["frame_id"])
@@ -955,6 +978,7 @@ class Tracker:
                 if self.async_mapping and self._map_jobs and self._ba_skips < BA_SKIP_LIMIT:
                     self._ba_skips += 1
                     self.n_ba_skipped += 1
+                    self.timing.count("local_ba_skipped")
                 else:
                     self._ba_skips = 0
                     # One local BA in flight at a time.

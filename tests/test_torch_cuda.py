@@ -5,11 +5,13 @@ order of operations in tests/torch_kernel_emulation.py, the pose
 solve at the three cells' shapes, one solve or a batch in one launch)
 against their plain versions, and the point front end (one pair or a
 batch), the line front end and the frames of mono and RGB-D images on
-the card against the CPU.  They skip where no card is present; run them on the card with
+the card against the CPU, and the tracer's spans holding the blocking
+CUDA calls they issue.  They skip where no card is present; run them on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-This file imports torch and the port only, and --noconftest skips
+This file imports torch, the port and the benchmark's span readers
+(``slambench/spans.py``) only, and --noconftest skips
 tests/conftest.py, which imports jax (the card's machine has no jax).
 """
 
@@ -591,3 +593,32 @@ def test_sharded_gba_on_card_is_reproducible(cuda):
         for x, y in zip((a[0], a[1], a[4]), (b[0], b[1], b[4])):
             assert np.array_equal(x, y)
     _within_pose_contract(runs[4][0], runs[1][0])
+
+
+def test_tracer_puts_blocking_calls_down_to_their_span(cuda):
+    """Under a torch.profiler, a span of the port's tracer holding three
+    ``.item()`` calls and one ``.cpu()`` reads four blocking CUDA calls,
+    each put down to that span; the launches before it go to its parent."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from orb_line_slam_tpu_torch.utils.timing import StageTimer
+    from slambench import spans
+
+    timer = StageTimer()
+    timer.tracer.enable()
+    x = torch.arange(1024, dtype=torch.float32, device=cuda)
+    with timer.stage("warm"):
+        (x * 2).sum().item()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with timer.stage("frame"):
+            y = x * 3 + 1
+            with timer.stage("reads"):
+                values = [y.sum().item(), y.max().item(), y.min().item()]
+                host = y[:8].cpu()
+    assert values[1] == 3 * 1023 + 1 and host.shape == (8,)
+    program, syncs, launches = spans.read_events(prof)
+    window = spans.window(program, syncs, launches, [], frames=1)
+    assert window.syncs[("frame", "reads")][0] == 4
+    assert sum(n for chain, (n, _) in window.syncs.items() if chain) == 4
+    assert window.launches[("frame",)][0] >= 1 and window.launches[("frame", "reads")][0] >= 3
