@@ -19,9 +19,9 @@ over a shard mesh, in one process and across processes through
 eval/endurance.py's run (a sensor dropout recovered by relocalization,
 keyframe culling under capacity pressure), after building
 the hand-written CUDA kernels from the sources in this checkout and
-holding each to its plain PyTorch version: the describe and stereo-SAD
-kernels of the front end and the pose solve (every tracking step's three
-LM solves and each relocalization's, one launch each).  Run from the root of a
+holding each to its plain PyTorch version: the detection, describe and
+stereo-SAD kernels of the front end and the pose solve (every tracking
+step's three LM solves and each relocalization's, one launch each).  Run from the root of a
 checkout:
 
     python3 chip_smoke.py
@@ -29,8 +29,8 @@ checkout:
 Phases (each fails loudly, and the script exits non-zero):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: nvcc builds csrc/patch_tiles.cu, orb_describe.cu,
-     stereo_sad.cu and pose_solve.cu for sm_90a, one process each,
-     started together;
+     stereo_sad.cu, pose_solve.cu and orb_detect.cu for sm_90a, one
+     process each, started together;
   3. kernels vs plain, at each of the three stereo cells' atlas shapes
      and feature budgets (8, 8 and 4 pyramid levels), and for
      orb_describe also at the TUM cell's batch of one ([1, 2210, 640],
@@ -54,20 +54,29 @@ Phases (each fails loudly, and the script exits non-zero):
      equal on >= 99.5% of rows; the median pose difference and the
      accept/reject decisions that differ are printed; times, own device
      time, plain version and bound as above, with each shape's cluster
-     size and own us per LM iteration;
+     size and own us per LM iteration; orb_detect (phase_detect) on
+     rendered frames as the front end runs them: a KITTI-size pair, a
+     EuRoC-size pair, one TUM-size image and a batched step's 4 KITTI-size
+     pairs, all six outputs equal to detect_reference's on the same card
+     tensors (torch.equal), LAUNCHES_PER_CALL launches a call, times, own
+     device time a call and a pass, plain version and bound (level pixels
+     read once, FAST_FLOP a pixel) as above;
   4. one frame: build_stereo_frame on the card vs its plain path on the
      CPU, held to the frame contract of tests/test_torch_frontend.py;
      on the card it must launch exactly one orb_describe and one
-     stereo_sad kernel and make no [N, 32, 32] tensor; device time and
-     kernel count of the frame and of its describe and SAD stages;
+     stereo_sad kernel and one detection call's orb_detect kernels, and
+     make no [N, 32, 32] tensor; device time and kernel count of the
+     frame and of its detection, describe and SAD stages;
      stereo_match through the stereo_sad kernel vs through its plain
      version;
      extract_orb_with_tiles (the single-image path that returns tiles and
      keeps the patch-tile gather: one launch per image) on five images vs
      the CPU; build_mono_frame and build_rgbd_frame on one TUM-size image
-     vs their CPU plain paths, each launching exactly one orb_describe and
-     no patch_tiles and making no [N, 32, 32] tensor;
+     vs their CPU plain paths, each launching exactly one orb_describe,
+     one detection call's orb_detect kernels and no patch_tiles and
+     making no [N, 32, 32] tensor;
   5. the slice: 40 frames, state OK, >= 3 keyframes, >= 1 local BA, one
+     detection call (LAUNCHES_PER_CALL orb_detect launches), one
      orb_describe and one stereo_sad launch per frame and no patch-tile
      launch, three pose-solve launches per frame after the first (one
      tracking step each) and no other, ATE no more than 10% + 1 cm above
@@ -122,11 +131,11 @@ Phases (each fails loudly, and the script exits non-zero):
  12. the monocular slice: 40 TUM-size frames (tum_config) through
      System.track_monocular, state OK, initialised at the JAX package's
      frame, >= 3 keyframes, >= 1 local BA, > 80 map points, one
-     orb_describe per frame and nothing else, similarity-aligned ATE no
+     orb_describe and one detection call per frame and nothing else, similarity-aligned ATE no
      more than 10% + 1 cm above the JAX package's;
  13. the RGB-D slice: 40 TUM-size frames of a room through
      System.track_rgbd, state OK, >= 3 keyframes, >= 1 local BA, one
-     orb_describe per frame and nothing else, ATE no more than 10% + 1 cm
+     orb_describe and one detection call per frame and nothing else, ATE no more than 10% + 1 cm
      above the JAX package's;
  14. batched multi-sequence SLAM (BASELINE config #4), each sequence a
      System on its defaults (bench_pipeline_config: lines and loop
@@ -141,8 +150,8 @@ Phases (each fails loudly, and the script exits non-zero):
      three windows of the batched steps), host ms per batched step, the
      speedup against B = 1, and the kernels and device ms of one steady
      batched step profiled alone at B = 1 and 4.  In both, every batched step launches
-     exactly one orb_describe and one stereo_sad (a per-sequence step one
-     of each per sequence) and three pose solves per tracking step (the
+     exactly one orb_describe, one stereo_sad and one detection call (a
+     per-sequence step one of each per sequence) and three pose solves per tracking step (the
      vmapped step of all B sequences is one), and a per-sample fallback
      of torch.func.vmap fails the run;
  15. the distributed global BA (BASELINE config #5), S shards sharing
@@ -166,7 +175,7 @@ Phases (each fails loudly, and the script exits non-zero):
      the asynchronous dispatch_global_ba (solved on the global-BA
      worker's stream) + poll_global_ba are held to bundle_adjust_cg on
      the same pack (inlier flags on >= 99% of the rows, the poses written
-     to the map).  None of the four kernels is launched on this path.
+     to the map).  None of the five kernels is launched on this path.
  16. the endurance run and the host modules: (a)
      eval/endurance.py::run_endurance(n_frames=120, laps=0.45,
      loss_at=0.5, loss_frames=4, lines=True, shipping=True,
@@ -175,7 +184,7 @@ Phases (each fails loudly, and the script exits non-zero):
      noise frames LOST and <= loss_frames + 6 frames lost in all,
      tracking recovered, >= 1 Tracker._relocalize that succeeds from
      keyframe-database candidates (the method wrapped here), one
-     orb_describe and one stereo_sad per frame (noise frames included)
+     detection call, one orb_describe and one stereo_sad per frame (noise frames included)
      and no patch tile, three pose solves per tracking step and one per
      relocalization or reference-keyframe solve, ATE within max(1.25 x, + 2 cm) of the JAX
      package's pinned run of the same call on the CPU; prints the
@@ -197,7 +206,8 @@ Phases (each fails loudly, and the script exits non-zero):
      under draw MONO_LOOP_CLOSING_DRAW, where the JAX package closes a
      loop: >= 1 loop closed with a free scale and a global BA, no frame
      lost, ATE within 10% + 1 cm of the JAX package's and below the run
-     without loop closing; one orb_describe per frame, no stereo_sad,
+     without loop closing; one orb_describe and one detection call per
+     frame, no stereo_sad,
      three pose solves per tracking step; (c) the scale-drifted fixture
      closed on the card and on CPU tensors, the two held together.
 Phases 5, 7, 8, 10, 12, 13 and 17 pin the schedule the JAX references were
@@ -214,7 +224,7 @@ missing; such a window is taken again (a bounded number of times, then
 the run fails), and a line near the end says how many were.  All six sequences (the circuit under two noise draws) are
 rendered once, before phase 4, by worker processes (the frames equal
 those of rendering each in order).  The line before the last lists the
-four kernels, with their launches over phases 4, 5, 7, 10, 11, 12, 13,
+five kernels, with their launches over phases 4, 5, 7, 10, 11, 12, 13,
 14, 16 and 17; the last line is the JSON
 device record.  ``python3 chip_smoke.py --endurance-long`` runs
 bench.py:92's run_endurance(n_frames=1500, shipping=True) and the same
@@ -889,6 +899,86 @@ def phase_fused_kernels(cells, mono_cells=()):
     return summary(d_records), summary(s_records)
 
 
+# float32 operations one pixel of one level needs for the FAST-9 score and
+# the 3x3 NMS: 16 differences from the centre; per sign, the 9-wide
+# circular minimum (maximum) of the 16 by windows of 2, 4, 8 and 9 (4 x 16)
+# and the best of the 16 (15); the negation and the larger of the two (2);
+# 8 comparisons with the neighbours.  The interior mask, the top-k and the
+# parabola are integer or per-keypoint work beside it.
+FAST_FLOP = 16 + 2 * (4 * 16 + 15) + 2 + 8
+
+
+def phase_detect(shapes):
+    """orb_detect on the card against its plain version (detect_reference)
+    on the same card tensors, at the main path's shapes: `shapes` holds
+    (name, config, uint8 [b, H, W] images), each run as the front end runs
+    it (one image as an [H, W] pyramid, b > 1 as one [b, H, W] batch).  All
+    six outputs must be equal (torch.equal) and a call must count
+    LAUNCHES_PER_CALL launches.  Then CUDA-event times of kernel and plain
+    version (plain, kernel, kernel, plain), the kernel's own device time a
+    call and each pass's under torch.profiler, the plain version's device
+    time and kernel count, and the bound: the larger of the level pixels
+    read once and the outputs written once at the HBM rate, and FAST_FLOP a
+    level pixel at the float32 rate.  Returns the kernels-line record."""
+    import torch
+
+    from orb_line_slam_tpu_torch.ops import detect
+    from orb_line_slam_tpu_torch.ops.image import build_pyramid, pyramid_atlas
+
+    records = []
+    for name, cfg, imgs in shapes:
+        img = torch.from_numpy(np.ascontiguousarray(imgs)).cuda()
+        img = img[0] if img.shape[0] == 1 else img
+        levels = build_pyramid(img.to(torch.float32), cfg.orb.n_levels, cfg.orb.scale_factor)
+        atlas = pyramid_atlas(levels)[0].contiguous()
+        before = detect.launches
+        got = detect.detect_keypoints(levels, atlas, cfg.orb)
+        ran = detect.launches - before
+        want = detect.detect_reference(levels, cfg.orb)
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(g, w)) for g, w in zip(got, want)]
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        b = imgs.shape[0]
+        n_out, n_valid = got[4].numel(), int(want[4].sum())
+        check(ran == detect.LAUNCHES_PER_CALL, f"orb_detect at {name}: {ran} launches for one call")
+        check(all(same), f"orb_detect at {name} differs from the plain version: (xy, axy, resp, octave, valid, delta) "
+                         f"equal {same}, max abs err {err}")
+
+        def kernel():
+            return detect.detect_keypoints(levels, atlas, cfg.orb)
+
+        def plain():
+            return detect.detect_reference(levels, cfg.orb)
+
+        plain_ms = cuda_times_ms(plain, n=5, reps=2)
+        ms = cuda_times_ms(kernel, reps=50)
+        ms2 = cuda_times_ms(kernel, reps=50)
+        plain_ms2 = cuda_times_ms(plain, n=5, reps=2)
+        parts = {}
+        own = own_device_ms(kernel, "orb_detect", detect, per_call=detect.LAUNCHES_PER_CALL, parts=parts)
+        plain_own, plain_k = device_ms(plain)
+        n_pix = b * sum(l.shape[-2] * l.shape[-1] for l in levels)
+        n_bytes = n_pix * 4 + n_out * (8 + 8 + 4 + 4 + 1 + 8)
+        bytes_ms = n_bytes / H100_BYTES_PER_S * 1e3
+        ops_ms = n_pix * FAST_FLOP / H100_FP32_FLOPS * 1e3
+        shape = f"{name}: atlas [{b}x{atlas.shape[-2]}x{atlas.shape[-1]}], {len(levels)} levels, N={b}x{n_out // b}"
+        print(f"orb_detect ({shape}): all six outputs EXACTLY equal to the plain version ({n_valid} valid keypoints); "
+              f"kernel {ms * 1e3:.2f}/{ms2 * 1e3:.2f} us, plain {plain_ms * 1e3:.0f}/{plain_ms2 * 1e3:.0f} us per call "
+              f"(CUDA events; plain, kernel, kernel, plain); own device time {own * 1e3:.2f} us in "
+              f"{detect.LAUNCHES_PER_CALL} kernels ("
+              + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in sorted(parts.items()))
+              + f"; plain: {plain_own * 1e3:.1f} us in {plain_k} kernels); bound {max(bytes_ms, ops_ms) * 1e3:.2f} us: "
+              f"{n_bytes} bytes ({n_pix} level pixels read once, {n_out} rows written) = {bytes_ms * 1e3:.2f} us at "
+              f"{H100_BYTES_PER_S / 1e12:.2f} TB/s, {n_pix * FAST_FLOP} float32 operations = {ops_ms * 1e3:.2f} us at "
+              f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s")
+        records.append({"shape": shape, "max_abs_err": err, "exact": True, "valid": n_valid,
+                        "ms": min(ms, ms2), "plain_ms": min(plain_ms, plain_ms2),
+                        "bound_ms": max(bytes_ms, ops_ms), "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                        "library_ms": None, "device_ms": own, "pass_device_ms": parts,
+                        "plain_device_ms": plain_own, "plain_kernels": plain_k})
+    return {**records[0], "max_abs_err": max(r["max_abs_err"] for r in records), "by_shape": records}
+
+
 # The pose solve's cells (phase 3): the points M the tracking step hands
 # it (a frame's feature budget) and the lines L of the final solve (the
 # line table's n_lines; 0 with lines off).  Paths A and B run 2x8 without
@@ -1196,7 +1286,8 @@ def tile_watch(n_feat):
 def phase_frame(cfg, pair):
     """build_stereo_frame on the card vs the plain path on the CPU; on the
     card it launches exactly one orb_describe and one stereo_sad kernel and
-    makes no [N, 32, 32] tile tensor."""
+    one detection call's orb_detect kernels, and makes no [N, 32, 32] tile
+    tensor."""
     import torch
 
     from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frame
@@ -1211,8 +1302,10 @@ def phase_frame(cfg, pair):
         fg = build_stereo_frame(lg, rg, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 1, "pose_solve": 0},
-          f"build_stereo_frame on the card launched {launches} (want one orb_describe, one stereo_sad, no patch_tiles)")
+    check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 1, "pose_solve": 0,
+                       "orb_detect": detect_launches(1)},
+          f"build_stereo_frame on the card launched {launches} (want one orb_describe, one stereo_sad, one "
+          "detection call's orb_detect launches, no patch_tiles)")
     check(not watch.seen, f"build_stereo_frame on the card made tile tensors: {watch.seen[:3]}")
     with TileWatch() as watch_cpu:
         build_stereo_frame(l, r, cfg)
@@ -1220,6 +1313,8 @@ def phase_frame(cfg, pair):
     stages = frame_stage_profile(cfg, lg, rg)
     check(stages["describe_stage"]["kernels"] == 1 and stages["sad_stage"]["kernels"] == 1,
           f"the describe and SAD stages are not one device kernel each: {stages}")
+    check(stages["detect_stage"]["kernels"] == detect_launches(1),
+          f"the detection stage is not orb_detect's {detect_launches(1)} device kernels: {stages}")
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1283,7 +1378,8 @@ def phase_stereo_match_kernel_vs_plain(cfg, pair):
 def phase_single_image(cfg, frames, n_images=5):
     """extract_orb_with_tiles, the single-image entry point that returns
     sub-pixel-shifted tiles, on the card: it is the path that keeps the
-    patch-tile gather (one launch per image, no orb_describe).  Held to the
+    patch-tile gather (one launch per image, no orb_describe; one
+    detection call per image).  Held to the
     CPU plain path under the frame contract's keypoint and descriptor
     terms.  Returns the launches."""
     import torch
@@ -1295,8 +1391,10 @@ def phase_single_image(cfg, frames, n_images=5):
         fg, tiles = extract_orb_with_tiles(torch.from_numpy(l).cuda(), cfg.orb)
     torch.cuda.synchronize()
     launches = read_launches()
-    check(launches == {"patch_tiles": n_images, "orb_describe": 0, "stereo_sad": 0, "pose_solve": 0},
-          f"extract_orb_with_tiles on {n_images} images launched {launches} (want one patch_tiles per image)")
+    check(launches == {"patch_tiles": n_images, "orb_describe": 0, "stereo_sad": 0, "pose_solve": 0,
+                       "orb_detect": detect_launches(n_images)},
+          f"extract_orb_with_tiles on {n_images} images launched {launches} (want one patch_tiles and one detection "
+          "call per image)")
     check(tiles.shape == (cfg.orb.n_features, 32, 32) and tiles.is_cuda, f"tiles {tuple(tiles.shape)}")
     fc, _ = extract_orb_with_tiles(torch.from_numpy(frames[n_images - 1][0]), cfg.orb)
     vc, vg = fc.valid.numpy(), fg.valid.cpu().numpy()
@@ -1313,8 +1411,8 @@ def phase_single_image(cfg, frames, n_images=5):
 
 def phase_mono_rgbd_frames(cfg, img, depth):
     """build_mono_frame and build_rgbd_frame on one TUM-size image on the
-    card: each launches exactly one orb_describe (a batch of one) and no
-    patch_tiles, makes no [N, 32, 32] tensor, and holds to its CPU plain
+    card: each launches exactly one orb_describe (a batch of one), one
+    detection call's orb_detect kernels and no patch_tiles, makes no [N, 32, 32] tensor, and holds to its CPU plain
     path under the frame contract (valid agreement > 0.98, keypoints
     within 0.51 px, median descriptor distance <= 1 bit; RGB-D: depth-hit
     agreement > 0.95, > 95% of depths within 1%).  Returns the CUDA-event
@@ -1335,8 +1433,10 @@ def phase_mono_rgbd_frames(cfg, img, depth):
             fg = build(*gpu_args, cfg)
         torch.cuda.synchronize()
         launches = read_launches()
-        check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 0, "pose_solve": 0},
-              f"build_{kind}_frame on the card launched {launches} (want one orb_describe and nothing else)")
+        check(launches == {"patch_tiles": 0, "orb_describe": 1, "stereo_sad": 0, "pose_solve": 0,
+                           "orb_detect": detect_launches(1)},
+              f"build_{kind}_frame on the card launched {launches} (want one orb_describe, one detection call's "
+              "orb_detect launches and nothing else)")
         check(not watch.seen, f"build_{kind}_frame on the card made tile tensors: {watch.seen[:3]}")
         check(fg.xy.is_cuda and fg.depth.is_cuda, f"build_{kind}_frame left the card")
         fg = fg.numpy()
@@ -1405,20 +1505,30 @@ def phase_bench_ba(cfg):
     return ms
 
 
-KERNELS = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve")
+KERNELS = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve", "orb_detect")
 # The function each kernel replaces in the JAX package: the one Pallas
-# kernel, and the jitted pose solve (TPU-shaped XLA code).
+# kernel, and TPU-shaped XLA code (the jitted pose solve; orb_detect
+# replaces no Pallas kernel, only the per-level detection XLA fuses).
 REPLACES = {"patch_tiles": "orb_line_slam_tpu/ops/pallas_patches.py:99",
             "orb_describe": "orb_line_slam_tpu/ops/pallas_patches.py:99",
             "stereo_sad": "orb_line_slam_tpu/ops/pallas_patches.py:99",
-            "pose_solve": "orb_line_slam_tpu/backend/pose_opt.py:57"}
+            "pose_solve": "orb_line_slam_tpu/backend/pose_opt.py:57",
+            "orb_detect": "orb_line_slam_tpu/frontend/orb_extractor.py:50"}
 
 
 def kernel_modules():
     from orb_line_slam_tpu_torch.backend import pose_opt
-    from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
+    from orb_line_slam_tpu_torch.ops import describe, detect, patches, stereo_sad
 
-    return dict(zip(KERNELS, (patches, describe, stereo_sad, pose_opt)))
+    return dict(zip(KERNELS, (patches, describe, stereo_sad, pose_opt, detect)))
+
+
+def detect_launches(n_calls):
+    """orb_detect's launches for n_calls detection calls (every stereo
+    pair, batch of pairs, mono or RGB-D frame, or image with tiles is one)."""
+    from orb_line_slam_tpu_torch.ops import detect
+
+    return detect.LAUNCHES_PER_CALL * n_calls
 
 
 def reset_launches():
@@ -1656,15 +1766,16 @@ def run_slice(cfg, poses, frames, name, dt, use_loop_closing=False, shipping=Fal
     check(slam.tracking_state() == "OK" or not end_tracked, f"{name}: final state {slam.tracking_state()}")
     check(n_kf >= 3, f"{name}: only {n_kf} keyframes")
     check(tr.n_local_ba >= 1, f"{name}: no local BA was applied")
-    # Two hand-written kernels per stereo pair, one orb_describe per mono or
-    # RGB-D frame, and no tile gather.
-    # and three pose solves per tracking step.
+    # One detection call (orb_detect's launches) and one orb_describe per
+    # frame, one stereo_sad per stereo pair, no tile gather, and three pose
+    # solves per tracking step.
     n_sad = len(frames) if sensor == "stereo" else 0
-    want = {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": n_sad, "pose_solve": sites.expected()}
+    want = {"patch_tiles": 0, "orb_describe": len(frames), "stereo_sad": n_sad, "pose_solve": sites.expected(),
+            "orb_detect": detect_launches(len(frames))}
     check(not check_launches or (launches == want and sites.counts["track_steps"] > 0),
-          f"{name}: kernel launches {launches} for {len(frames)} frames, {sites.counts} (want one orb_describe"
-          + (" and one stereo_sad" if n_sad else "") + " per frame, three pose solves per tracking step and one "
-          "per solve from associations)")
+          f"{name}: kernel launches {launches} for {len(frames)} frames, {sites.counts} (want one detection call and "
+          "one orb_describe" + (" and one stereo_sad" if n_sad else "") + " per frame, three pose solves per tracking "
+          "step and one per solve from associations)")
     slam.pose_solve_sites = dict(sites.counts)
     return slam, launches, fps, ate, per_frame
 
@@ -1858,25 +1969,30 @@ def device_ms(fn):
     return sum(e.end - e.start for e in kern) / 1e3, len(kern)
 
 
-def own_device_ms(fn, name, module, calls=20):
+def own_device_ms(fn, name, module, calls=20, per_call=1, parts=None):
     """Mean own device time (ms) of the hand-written kernel `name` over
     `calls` calls of its wrapper fn.  The wrapper's own count (`module`'s
-    `launches`) must read exactly `calls` afterwards: one launch per call.
-    The profile must hold exactly `calls` device records, all of that
-    kernel: a window that lost one is taken again, not averaged."""
+    `launches`) must read exactly `calls` x `per_call` afterwards.  The
+    profile must hold exactly that many device records, all of that
+    kernel: a window that lost one is taken again, not averaged.  A dict
+    `parts` receives the mean ms per call of each device kernel name."""
     fn()
+    n = calls * per_call
 
     def run():
         module.launches = 0
         for _ in range(calls):
             fn()
 
-    prof = profiled(run, lambda n: n >= calls, f"{calls} calls of {name}")
-    check(module.launches == calls, f"{name}'s wrapper counted {module.launches} launches for {calls} calls")
+    prof = profiled(run, lambda k: k >= n, f"{calls} calls of {name}")
+    check(module.launches == n, f"{name}'s wrapper counted {module.launches} launches for {calls} calls")
     kern = device_records(prof)
     other = sorted({e.name for e in kern if name not in e.name})
     check(not other, f"{name}'s wrapper launched other device kernels: {other[:3]}")
-    check(len(kern) == calls, f"{name}: {len(kern)} device kernels recorded for {calls} calls")
+    check(len(kern) == n, f"{name}: {len(kern)} device kernels recorded for {calls} calls")
+    if parts is not None:
+        for e in kern:
+            parts[e.name] = parts.get(e.name, 0.0) + (e.end - e.start) / 1e3 / calls
     return sum(e.end - e.start for e in kern) / 1e3 / calls
 
 
@@ -1939,6 +2055,7 @@ def range_device_times(prof, tags):
 # The stages of build_stereo_frame a profile range is opened around.
 FRAME_RANGES = (
     ("frontend.frame", "extract_orb_stereo", "extract_orb_stereo"),
+    ("frontend.orb_extractor", "detect_keypoints", "detect_stage"),
     ("frontend.frame", "stereo_match", "stereo_match"),
     ("frontend.orb_extractor", "describe_keypoints", "describe_stage"),
     ("frontend.stereo", "stereo_sad", "sad_stage"),
@@ -2798,9 +2915,9 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
     card over B sequences of equal length (seqs: B lists of (left, right)
     pairs), one process_stereo per time step, with every kernel's count
     set to 0 just before each step and read just after: a batched step
-    must launch exactly one orb_describe and one stereo_sad, a
-    per-sequence step (bootstrap, or line mirrors of different
-    capacities) one of each per sequence; three pose solves per tracking
+    must launch exactly one orb_describe, one stereo_sad and one detection
+    call's orb_detect kernels, a per-sequence step (bootstrap, or line
+    mirrors of different capacities) those of each per sequence; three pose solves per tracking
     step (a batched step's vmapped one is one launch each for all B) and
     one per solve from associations.  On the batched steps numbered
     in `check_steps` (from 0) each sequence's batched TrackOut is held to
@@ -2873,7 +2990,8 @@ def run_multiseq(cfg, seqs, name, check_steps=(), keep_step=None):
                 was_batched = mst.n_batched_frames == sum(batched) + 1
                 batched.append(was_batched)
                 per = 1 if was_batched else n_seq
-                check(n == {"patch_tiles": 0, "orb_describe": per, "stereo_sad": per, "pose_solve": sites.expected()}
+                check(n == {"patch_tiles": 0, "orb_describe": per, "stereo_sad": per, "pose_solve": sites.expected(),
+                            "orb_detect": detect_launches(per)}
                       and (not was_batched or sites.counts["track_steps"] >= 1),
                       f"{name}: step {i} ({'batched' if was_batched else 'per sequence'}, ready {ready}) "
                       f"launched {n}, {sites.counts}")
@@ -3342,7 +3460,7 @@ def phase_dist_route(slam):
 
 def phase_distributed(cam, gba_capacity, loop_slam):
     """Phase 15, the distributed global BA (BASELINE config #5): (a) to (e).
-    None of the four hand-written kernels is on this path: their counts
+    None of the five hand-written kernels is on this path: their counts
     are set to 0 before and must read 0 after."""
     reset_launches()
     phase_dist_parity()
@@ -3495,9 +3613,11 @@ def phase_endurance_run():
         if ok and kf in cand:
             from_db = [{"frame": first_after, "ok": True, "inliers": int(n_inl), "kf": kf, "after_run": True}]
     check(from_db, f"endurance: no relocalization succeeded from keyframe-database candidates: {relocs}")
-    check(launches == {"patch_tiles": 0, "orb_describe": n, "stereo_sad": n, "pose_solve": rec["pose_expected"]},
-          f"endurance: kernel launches {launches} for {n} frames, {rec['pose_sites']} (want one orb_describe and one "
-          f"stereo_sad per frame, three pose solves per tracking step and one per relocalization solve)")
+    check(launches == {"patch_tiles": 0, "orb_describe": n, "stereo_sad": n, "pose_solve": rec["pose_expected"],
+                       "orb_detect": detect_launches(n)},
+          f"endurance: kernel launches {launches} for {n} frames, {rec['pose_sites']} (want one detection call, one "
+          f"orb_describe and one stereo_sad per frame, three pose solves per tracking step and one per "
+          f"relocalization solve)")
     print(f"endurance: {launches['pose_solve']} pose-solve launches: 3 x {rec['pose_sites']['track_steps']} tracking "
           f"steps + {rec['pose_sites']['assoc_solves']} from associations (relocalization and reference-keyframe "
           f"tracks) over {n} frames")
@@ -4446,6 +4566,12 @@ def main():
     cells = (("point cell", cfg), ("point+line cell", lcfg), ("loop cell", ccfg))
     kern = {"patch_tiles": phase_kernel(cells)}
     kern["orb_describe"], kern["stereo_sad"] = phase_fused_kernels(cells, (("TUM cell", tcfg),))
+    pairs = MULTISEQ_KERNEL_PAIRS
+    kern["orb_detect"] = phase_detect([
+        ("point cell", cfg, np.stack(frames[0])), ("point+line cell", lcfg, np.stack(lframes[0])),
+        ("TUM cell", tcfg, mframes[0][None]),
+        (f"point cell, {pairs} pairs", cfg, np.stack([f[0] for f in frames[:pairs]] + [f[1] for f in frames[:pairs]])),
+    ])
     kern["pose_solve"] = phase_pose_solve(pose_cells())
     done("phases 1-3")
     metrics["stereo_frontend_fps"] = phase_frame(cfg, frames[0])
@@ -4513,6 +4639,7 @@ def main():
     # the endurance run (phase 16),
     # orb_describe over the mono and RGB-D frames (phases 12, 13 and 17),
     # patch_tiles over the single-image path with tiles (phase 4),
+    # orb_detect over every frame, step and image of those paths,
     # pose_solve over every tracking step and relocalization of phases 5,
     # 7, 10-14, 16 and 17, each read just after its path with the counts set
     # to 0 just before it.

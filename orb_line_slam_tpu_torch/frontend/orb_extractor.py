@@ -1,12 +1,13 @@
 """Batched multi-level ORB extraction (the front end's hot loop 1).
 
 Port of ``orb_line_slam_tpu/frontend/orb_extractor.py`` —
-``_detect_level`` (50-89), ``shift_tiles`` (92-113),
-``extract_orb_with_tiles`` (214-261), ``extract_orb`` (264-276) and
-``extract_orb_stereo`` (279-356); ``shift_blur_tiles`` (155-211) lives in
-``ops/describe.py``.  Images are cast to float32 before any arithmetic
-(uint8 wraps in torch, as ``orb_extractor.py:226,293`` cast for the same
-reason).  A stereo pair runs as one [2, H, W] batch through pyramid
+``shift_tiles`` (92-113), ``extract_orb_with_tiles`` (214-261),
+``extract_orb`` (264-276) and ``extract_orb_stereo`` (279-356);
+``_detect_level`` (50-89) lives in ``ops/detect.py``, whose kernel
+detects every level of every image of a call in two launches, and
+``shift_blur_tiles`` (155-211) in ``ops/describe.py``.  Images are cast
+to float32 before any arithmetic (uint8 wraps in torch, as
+``orb_extractor.py:226,293`` cast for the same reason).  A stereo pair runs as one [2, H, W] batch through pyramid
 and detection, and one fused kernel launch (``ops/describe.py``) cuts
 both images' tiles, shifts and blurs them and takes orientation and
 BRIEF without writing a tile; B pairs (the batched multi-sequence front
@@ -26,10 +27,9 @@ import torch
 from ..config import OrbConfig
 from ..ops.brief import brief_descriptors_from_tiles, ic_angle_from_tiles
 from ..ops.describe import describe_keypoints, shift_blur_tiles
-from ..ops.fast import fast_score_map, nms3x3
+from ..ops.detect import detect_keypoints
 from ..ops.image import build_pyramid, pyramid_atlas
 from ..ops.patches import gather_patch_tiles
-from ..ops.topk_grid import select_topk_grid
 from ..utils.timing import span
 
 
@@ -48,41 +48,6 @@ class FrameFeatures(NamedTuple):
         return self.xy.shape[0]
 
 
-def _detect_level(img: torch.Tensor, quota: int, cfg: OrbConfig):
-    """FAST + NMS + grid top-K on one level ([..., h, w]); returns (xy
-    int32, delta float32 in [-0.5, 0.5] from a parabola over the raw
-    score per axis, resp, valid)."""
-    raw = fast_score_map(img)
-    score = nms3x3(raw)
-    h, w = img.shape[-2], img.shape[-1]
-    m = cfg.edge_margin
-    ys = torch.arange(h, device=img.device)[:, None]
-    xs = torch.arange(w, device=img.device)[None, :]
-    interior = (ys >= m) & (ys < h - m) & (xs >= m) & (xs < w - m)
-    score = torch.where(interior, score, torch.zeros((), device=img.device))
-
-    n_cells = max(1, (h // cfg.cell_size) * (w // cfg.cell_size))
-    k_per_cell = max(1, min(16, (3 * quota) // n_cells + 1))
-    xy, resp, valid = select_topk_grid(score, cfg.cell_size, k_per_cell, quota, cfg.min_th_fast)
-    x, y = xy[..., 0].long(), xy[..., 1].long()
-    flat = raw.reshape(*raw.shape[:-2], h * w)
-
-    def at(dy, dx):
-        idx = torch.clamp(y + dy, 0, h - 1) * w + torch.clamp(x + dx, 0, w - 1)
-        return torch.gather(flat, -1, idx)
-
-    sc = at(0, 0)
-    dl, dr = at(0, -1), at(0, 1)
-    du, dd = at(-1, 0), at(1, 0)
-    denx = 2.0 * sc - dl - dr
-    deny = 2.0 * sc - du - dd
-    zero = torch.zeros_like(sc)
-    dx = torch.where(denx > 1e-6, 0.5 * (dr - dl) / denx, zero)
-    dy = torch.where(deny > 1e-6, 0.5 * (dd - du) / deny, zero)
-    delta = torch.clamp(torch.stack([dx, dy], dim=-1), -0.5, 0.5)
-    return xy, delta, resp, valid
-
-
 def shift_tiles(tiles: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     """Bilinear shift of [N, 32, 32] tiles by -delta (edge-padded), so the
     sub-pixel keypoint lands on tile index (15, 15)."""
@@ -98,32 +63,13 @@ def shift_tiles(tiles: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _detect_all_levels(levels, offs, cfg: OrbConfig):
-    """Per-level detection of (batched) pyramid levels, concatenated over
-    levels: (xy float level-0 coords, atlas xy int32, resp, octave,
-    valid, delta)."""
-    all_xy, all_axy, all_d, all_resp, all_oct, all_valid = [], [], [], [], [], []
-    for lvl, quota in enumerate(cfg.level_quotas):
-        xy, delta, resp, valid = _detect_level(levels[lvl], quota, cfg)
-        all_xy.append((xy.to(torch.float32) + delta) * cfg.level_scales[lvl])
-        shift = torch.tensor([0, offs[lvl]], dtype=torch.int32, device=xy.device)
-        all_axy.append(xy + shift)
-        all_d.append(delta)
-        all_resp.append(resp)
-        all_oct.append(torch.full(xy.shape[:-1], lvl, dtype=torch.int32, device=xy.device))
-        all_valid.append(valid)
-    return (
-        torch.cat(all_xy, dim=-2), torch.cat(all_axy, dim=-2), torch.cat(all_resp, dim=-1),
-        torch.cat(all_oct, dim=-1), torch.cat(all_valid, dim=-1), torch.cat(all_d, dim=-2),
-    )
-
-
-def _level_offsets(levels) -> list[int]:
-    offs, y = [], 0
-    for l in levels:
-        offs.append(y)
-        y += l.shape[-2]
-    return offs
+def _detect_all_levels(levels, atlas, cfg: OrbConfig):
+    """Keypoints of (batched) pyramid levels and their atlas, concatenated
+    over levels: (xy float level-0 coords, atlas xy int32, resp, octave,
+    valid, delta), by ``ops/detect.py::detect_keypoints``.  The extractors
+    call detection by this name, which ``slambench/harness.py`` wraps to
+    read each frame's valid mask."""
+    return detect_keypoints(levels, atlas, cfg)
 
 
 def _detect_image(image: torch.Tensor, cfg: OrbConfig):
@@ -133,7 +79,7 @@ def _detect_image(image: torch.Tensor, cfg: OrbConfig):
         levels = build_pyramid(image.to(torch.float32), cfg.n_levels, cfg.scale_factor)
         atlas, _ = pyramid_atlas(levels)
     with span("detect"):
-        return (atlas, *_detect_all_levels(levels, _level_offsets(levels), cfg))
+        return (atlas, *_detect_all_levels(levels, atlas, cfg))
 
 
 def extract_orb_with_tiles(image: torch.Tensor, cfg: OrbConfig):
@@ -180,7 +126,7 @@ def extract_orb_stereo(img_left: torch.Tensor, img_right: torch.Tensor, cfg: Orb
         levels = build_pyramid(img, cfg.n_levels, cfg.scale_factor)
         atlas, offs = pyramid_atlas(levels)
     with span("detect"):
-        xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, _level_offsets(levels), cfg)
+        xy, axy, resp, octv, valid, deltas = _detect_all_levels(levels, atlas, cfg)
     with span("describe"):
         axy = axy.contiguous()
         angles, desc = describe_keypoints(atlas, axy, deltas.contiguous())

@@ -25,7 +25,7 @@ from ..utils.timing import span
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve")
+SOURCES = ("patch_tiles", "orb_describe", "stereo_sad", "pose_solve", "orb_detect")
 _FUNCTIONS: dict[str, ctypes._CFuncPtr] = {}
 # {"kernel", "step": "nvcc" (built), "cached" (library up to date) or
 # "load" (the library opened), "s"} of each build and load, in order.

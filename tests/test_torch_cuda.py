@@ -1,5 +1,7 @@
 """Tests that need a CUDA card: the hand-written kernels (patch tiles,
-fused describe, fused stereo SAD, one pair or a batch of pairs, the two
+ORB detection over every level of one image, a pair or a batch, equal to
+its plain version, fused describe, fused stereo SAD, one pair or a batch
+of pairs, the two
 front-end kernels bit for bit against the numpy emulation of their
 order of operations in tests/torch_kernel_emulation.py, the pose
 solve at the three cells' shapes, one solve or a batch in one launch)
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from orb_line_slam_tpu_torch.backend import pose_opt
-from orb_line_slam_tpu_torch.ops import describe, patches, stereo_sad
+from orb_line_slam_tpu_torch.ops import describe, detect, patches, stereo_sad
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +54,90 @@ def test_kernel_matches_plain_exactly(cuda, h, w, n):
 def test_kernel_rejects_mixed_devices(cuda):
     with pytest.raises(ValueError):
         patches.gather_patch_tiles(torch.zeros((40, 40), device=cuda), torch.zeros((2, 2), dtype=torch.int32))
+
+
+def _detect_images(seed, b, h, w, kind="smooth"):
+    """[b, h, w] float32 images: low-passed noise with corners and flats,
+    or quantised plateaus beside a checkerboard (equal scores everywhere),
+    or a blank image."""
+    rng = np.random.default_rng(seed)
+    noise = torch.from_numpy((rng.random((b, 1, h, w)) * 255).astype(np.float32))
+    img = (torch.nn.functional.avg_pool2d(noise, 5, 1, 2, count_include_pad=False) * 0.6 + noise * 0.4)[:, 0]
+    if kind == "ties":
+        img = torch.floor(img / 48) * 48
+        yy, xx = torch.meshgrid(torch.arange(h), torch.arange(w), indexing="ij")
+        img[:, :, w // 2:] = (((yy // 5 + xx // 5) % 2) * 120.0 + 40.0)[:, w // 2:]
+    if kind == "blank":
+        img = torch.full((b, h, w), 77.0)
+    return img.contiguous()
+
+
+def _detect_both(cuda, img, cfg):
+    """The kernel's and the plain version's outputs on the same card
+    pyramid and atlas, and the kernel's launches."""
+    from orb_line_slam_tpu_torch.ops.image import build_pyramid, pyramid_atlas
+
+    levels = build_pyramid(img.to(cuda), cfg.n_levels, cfg.scale_factor)
+    atlas, _ = pyramid_atlas(levels)
+    before = detect.launches
+    got = detect.detect_keypoints(levels, atlas, cfg)
+    torch.cuda.synchronize()
+    ran = detect.launches - before
+    return got, detect.detect_reference(levels, cfg), ran
+
+
+def _assert_detect_equal(got, want):
+    for name, g, w in zip(("xy", "axy", "resp", "octave", "valid", "delta"), got, want):
+        assert g.device.type == "cuda" and g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), f"{name}: {(g != w).sum().item()} elements differ"
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("cell", [(376, 1241, 2000), (480, 752, 1200), (480, 640, 1000)])
+def test_detect_kernel_equals_plain_version(cuda, cell, b):
+    """orb_detect at the KITTI, EuRoC and TUM shapes, on one image ([H, W]),
+    a stereo pair and a batch of 8: all six outputs equal the plain
+    version's on the same card pyramid, in two launches whatever the batch."""
+    from orb_line_slam_tpu_torch.config import OrbConfig
+
+    h, w, n = cell
+    cfg = OrbConfig(n_features=n)
+    img = _detect_images(h + b, b, h, w)
+    got, want, ran = _detect_both(cuda, img[0] if b == 1 else img, cfg)
+    assert ran == detect.LAUNCHES_PER_CALL
+    assert got[0].shape == ((n, 2) if b == 1 else (b, n, 2))
+    _assert_detect_equal(got, want)
+    assert (want[4].sum(-1) > 0.5 * n).all()
+
+
+@pytest.mark.parametrize("kind,h,w,n", [("ties", 240, 320, 800), ("blank", 120, 160, 300), ("smooth", 40, 48, 300)])
+def test_detect_kernel_equals_plain_version_on_ties_blanks_and_padding(cuda, kind, h, w, n):
+    """Equal scores everywhere (plateaus, a checkerboard), a blank pair
+    (every row invalid), and a small pair whose levels hold fewer
+    candidate slots than their quota (the padded rows)."""
+    from orb_line_slam_tpu_torch.config import OrbConfig
+    from orb_line_slam_tpu_torch.ops.image import pyramid_shapes
+
+    cfg = OrbConfig(n_features=n, n_levels=3)
+    got, want, ran = _detect_both(cuda, _detect_images(h * w, 2, h, w, kind), cfg)
+    assert ran == detect.LAUNCHES_PER_CALL
+    _assert_detect_equal(got, want)
+    if kind == "blank":
+        assert not want[4].any()
+    if kind == "smooth":
+        t = detect.level_table(pyramid_shapes(h, w, cfg.n_levels, cfg.scale_factor), cfg)
+        assert any(c * k < q for c, k, q in zip(t["n_cells"], t["k"], t["quota"]))
+
+
+def test_detect_kernel_rejects_mixed_devices(cuda):
+    from orb_line_slam_tpu_torch.config import OrbConfig
+    from orb_line_slam_tpu_torch.ops.image import build_pyramid, pyramid_atlas
+
+    cfg = OrbConfig(n_features=100, n_levels=2)
+    levels = build_pyramid(_detect_images(1, 1, 64, 64)[0], 2, cfg.scale_factor)
+    atlas, _ = pyramid_atlas(levels)
+    with pytest.raises(ValueError):
+        detect.detect_keypoints(levels, atlas.to(cuda), cfg)
 
 
 def _atlas_and_keypoints(cuda, h, w, n, seed):
@@ -184,9 +270,13 @@ def test_stereo_sad_kernel_is_the_emulations_bits(cuda, fractional):
 
 
 def test_batch_of_eight_pairs_is_one_launch_of_each_front_end_kernel(cuda):
-    """orb_describe over the 16 images of 8 stereo pairs and stereo_sad over
-    the 8 pairs: one launch each, and each image's or pair's outputs the
-    bits of its own launch."""
+    """orb_detect over the 16 images of 8 stereo pairs (its two launches),
+    orb_describe over the 16 images and stereo_sad over the 8 pairs: one
+    launch each, and each image's or pair's outputs the bits of its own
+    launch."""
+    from orb_line_slam_tpu_torch.config import OrbConfig
+    from orb_line_slam_tpu_torch.ops.image import build_pyramid, pyramid_atlas
+
     b, h, w, n = 8, 120, 200, 64
     rng = np.random.default_rng(8)
     noise = torch.from_numpy((rng.random((2 * b, 1, h, w)) * 255).astype(np.float32)).to(cuda)
@@ -196,15 +286,22 @@ def test_batch_of_eight_pairs_is_one_launch_of_each_front_end_kernel(cuda):
     delta = torch.from_numpy(rng.uniform(-0.5, 0.5, (2 * b, n, 2)).astype(np.float32)).to(cuda)
     cx = (axy[:b, :, 0].float() - torch.from_numpy(rng.uniform(0, 60, (b, n)).astype(np.float32)).to(cuda)).contiguous()
     cy = (axy[:b, :, 1].float() + torch.from_numpy(rng.uniform(0, 1, (b, n)).astype(np.float32)).to(cuda)).contiguous()
-    before = (describe.launches, stereo_sad.launches)
+    cfg = OrbConfig(n_features=300, n_levels=4)
+    levels = build_pyramid(noise[:, 0].contiguous(), cfg.n_levels, cfg.scale_factor)
+    pyr, _ = pyramid_atlas(levels)
+    before = (describe.launches, stereo_sad.launches, detect.launches)
+    found = detect.detect_keypoints(levels, pyr, cfg)
     ang, desc = describe.describe_keypoints(atlas, axy, delta)
     sad = stereo_sad.stereo_sad(atlas[:b], axy[:b].contiguous(), atlas[b:], cx, cy)
     torch.cuda.synchronize()
-    assert (describe.launches, stereo_sad.launches) == (before[0] + 1, before[1] + 1)
-    assert ang.shape == (2 * b * n,) and sad.shape == (b, n, 11)
+    assert (describe.launches, stereo_sad.launches, detect.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + detect.LAUNCHES_PER_CALL)
+    assert ang.shape == (2 * b * n,) and sad.shape == (b, n, 11) and found[0].shape == (2 * b, 300, 2)
     for i in range(2 * b):
         a1, d1 = describe.describe_keypoints(atlas[i:i + 1], axy[i:i + 1], delta[i:i + 1])
         assert torch.equal(d1, desc[i * n:(i + 1) * n]) and torch.equal(a1, ang[i * n:(i + 1) * n])
+        one = detect.detect_keypoints([l[i:i + 1] for l in levels], pyr[i:i + 1].contiguous(), cfg)
+        assert all(torch.equal(o[0], f[i]) for o, f in zip(one, found))
     for i in range(b):
         assert torch.equal(stereo_sad.stereo_sad(atlas[i], axy[i], atlas[b + i], cx[i], cy[i]), sad[i])
 
@@ -447,10 +544,11 @@ def test_frame_on_card_matches_cpu(cuda):
     l, r = SyntheticScene(cam, n_points=900, seed=5, extent=((-24, 40), (-4, 4), (-32, 32))).render_stereo(
         np.eye(3), np.zeros(3))
     fc = build_stereo_frame(torch.from_numpy(l), torch.from_numpy(r), cfg).numpy()
-    before = (patches.launches, describe.launches, stereo_sad.launches)
+    before = (patches.launches, describe.launches, stereo_sad.launches, detect.launches)
     fg = build_stereo_frame(torch.from_numpy(l).to(cuda), torch.from_numpy(r).to(cuda), cfg).numpy()
-    # Two fused kernels per stereo pair, and no tile gather.
-    assert (patches.launches, describe.launches, stereo_sad.launches) == (before[0], before[1] + 1, before[2] + 1)
+    # Two fused kernels per stereo pair, the detection's two launches, and no tile gather.
+    assert (patches.launches, describe.launches, stereo_sad.launches, detect.launches) == (
+        before[0], before[1] + 1, before[2] + 1, before[3] + detect.LAUNCHES_PER_CALL)
     assert (fc.valid == fg.valid).mean() > 0.98
     both = fc.valid & fg.valid
     assert np.abs(fc.xy[both] - fg.xy[both]).max() < 0.51

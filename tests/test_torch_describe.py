@@ -597,8 +597,8 @@ def test_loader_builds_every_source_once(tmp_path, monkeypatch):
     for name in _build.SOURCES:
         assert _build.library_path(name).exists() and (_build.CSRC / f"{name}.cu").exists()
     calls = log.read_text().splitlines()
-    assert len(calls) == len(_build.SOURCES) == 4
+    assert len(calls) == len(_build.SOURCES) == 5
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     _build.build()
-    assert len(log.read_text().splitlines()) == 4
+    assert len(log.read_text().splitlines()) == 5
     assert not [f for f in os.listdir(tmp_path / "build") if f.endswith(".tmp")]

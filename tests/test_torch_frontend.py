@@ -16,7 +16,7 @@ from orb_line_slam_tpu_torch.convert import config_from_jax
 from orb_line_slam_tpu_torch.frontend import orb_extractor as torb
 from orb_line_slam_tpu_torch.frontend.frame import build_stereo_frame
 from orb_line_slam_tpu_torch.frontend.stereo import nanmedian_linear
-from orb_line_slam_tpu_torch.ops import brief as tbrief, fast as tfast, hamming as tham, image as timage
+from orb_line_slam_tpu_torch.ops import brief as tbrief, detect as tdetect, fast as tfast, hamming as tham, image as timage
 from orb_line_slam_tpu_torch.ops.topk_grid import select_topk_grid
 
 torch.set_num_threads(1)
@@ -78,7 +78,7 @@ def test_detect_level_exact():
     cfg = OrbConfig(n_features=300, n_levels=1)
     img = _img(5, 128, 192)
     xj, dj, rj, vj = jorb._detect_level(jnp.asarray(img), 300, cfg)
-    xt, dt, rt, vt = torb._detect_level(T(img), 300, config_from_jax(SlamConfig(orb=cfg)).orb)
+    xt, dt, rt, vt = tdetect.detect_level(T(img), 300, config_from_jax(SlamConfig(orb=cfg)).orb)
     np.testing.assert_array_equal(xt.numpy(), np.asarray(xj))
     np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-6)
