@@ -4,9 +4,10 @@
         --control-seeds 11,12,13
 
 For each seed: the cell's sequence rendered with that seed's sensor noise,
-one closed-loop pass as a run's window starts (after one warm-up pass on
-the first seed), and the checks' numbers of the program against the
-reference on the samples a run compares (the lower readings).  For each
+one closed-loop pass through the cell's driver as a run's window starts
+(after one warm-up pass on the first seed), and the checks' numbers of the
+program against the reference on the samples a run compares (the lower
+readings).  For each
 control seed besides: the same numbers of the control, the reference
 computed in the nearest lower precision in the program's place (the upper
 readings), and the ATE of a pass of the program itself with TF32 switched
@@ -42,9 +43,10 @@ def main(argv) -> int:
     prog = harness.load_program("cuda")
     cfg = harness.slam_config(prog.config, config)
     print(f"card: {harness.card_line()}", flush=True)
-    with harness.Probes() as warm:
+    driver = harness.load_driver(traffic)
+    with driver.Probes() as warm:
         warm.sample_pass = -1
-        harness.replay(prog, cfg, cell, rendered[seeds[0]][1], warm, 0.0, "cuda", whole_passes=True)
+        driver.replay(prog, cfg, cell, rendered[seeds[0]][1], warm, 0.0, "cuda", whole_passes=True)
     for seed in sorted(set(seeds) | controls):
         row = harness.pass_numbers(prog, cfg, cell, seed, rendered[seed], "cuda", control=seed in controls)
         print(json.dumps(row), flush=True)

@@ -24,11 +24,14 @@ reference makes of the same inputs:
   The widest gaps are printed beside them.
 - ``track_match_mismatch``: share of slots (valid on either side) where
   the tracking step's matching differs: the reference's tracking step runs
-  on the sampled frame (its own front end's output) and the program's state
-  before the step (last frame, map mirror, carry), its three pose solves
-  replaced by the program's results in order; each solve's inputs (the
-  selected observations and landmarks, the initial pose) are held to the
-  program's, then the frame's final associations and line matches.
+  on the sampled frame (its own front end's output; where the capture
+  gives ``step_frames``, the program's frame and line features, whose
+  front end the mismatch shares above hold by themselves) and the
+  program's state before the step (last frame, map mirror, carry), its
+  three pose solves replaced by the program's results in order; each
+  solve's inputs (the selected observations and landmarks, the initial
+  pose) are held to the program's, then the frame's final associations
+  and line matches.
 - ``loop_mismatch``: share of the sampled pass's keyframe insertions into
   the loop detector whose outcome differs from the reference's: the
   keyframe's BoW words (vocabulary retrained from the same corpus), whether
@@ -78,6 +81,11 @@ MIN_ATE_FRAMES = 20
 XY_TOL_PX, LINE_TOL_PX, DEPTH_TOL = 1e-3, 1e-2, 1e-3
 # The tracking step's pose solves, in the order it makes them.
 SOLVE_PATHS = ("A", "B", "final")
+# The initial-pose tolerance of a capture that sets ``pose0_tol`` (the
+# batched step's: it composes path A's pose under vmap, whose 3x3 products
+# sum in another order and move the last bit or two); R0 absolute, t0
+# relative to its size.  Every other capture compares the pose exactly.
+POSE0_TOL = 1e-6
 
 
 class Bfloat16Rounding(TorchDispatchMode):
@@ -129,6 +137,32 @@ def rotation_gap(Ra, Rb) -> float:
                   np.asarray(Rb, np.float64).reshape(-1, 3, 3))
     w = np.stack([d[:, 2, 1] - d[:, 1, 2], d[:, 0, 2] - d[:, 2, 0], d[:, 1, 0] - d[:, 0, 1]], -1)
     return float(np.arcsin(np.clip(np.linalg.norm(w, axis=1) / 2, 0, 1)).max())
+
+
+class Reservoir:
+    """The ``size`` items of lowest priority among those offered, the
+    priority a function of the item's key (drawn from the run's seed): a
+    sample of fixed size, drawn from the seed, of however many items a
+    window produces, that holds at most ``size`` of them at a time."""
+
+    def __init__(self, size: int = 0, priority=None):
+        self.size, self.priority, self.kept = size, priority, {}
+
+    def wants(self, key) -> bool:
+        if self.size <= 0:
+            return False
+        if len(self.kept) < self.size:
+            return True
+        return self.priority(key) < max(p for p, _ in self.kept.values())
+
+    def offer(self, key, item) -> None:
+        self.kept[key] = (self.priority(key), item)
+        while len(self.kept) > self.size:
+            del self.kept[max(self.kept, key=lambda k: self.kept[k][0])]
+
+    def items(self) -> list:
+        """(key, item) in key order."""
+        return [(k, self.kept[k][1]) for k in sorted(self.kept)]
 
 
 # ---------------------------------------------------------------------------
@@ -257,12 +291,22 @@ def _same(a, b) -> bool:
     return bool(np.array_equal(_np(a), _np(b)))
 
 
-def solve_mismatch(a: dict, b: dict) -> tuple[int, int]:
+def _same_pose(a: dict, b: dict, tol: float) -> bool:
+    """The two solves start from the same pose: bit for bit, or with a
+    ``tol`` above 0 to within it."""
+    if tol <= 0:
+        return _same(a.get("R0"), b.get("R0")) and _same(a.get("t0"), b.get("t0"))
+    Ra, ta, Rb, tb = (_np(x.get(k)).astype(np.float64) for x in (a, b) for k in ("R0", "t0"))
+    return (Ra.shape == Rb.shape and ta.shape == tb.shape and np.abs(Ra - Rb).max() <= tol
+            and np.abs(ta - tb).max() <= tol * max(1.0, np.abs(tb).max()))
+
+
+def solve_mismatch(a: dict, b: dict, pose0_tol: float = 0.0) -> tuple[int, int]:
     """(mismatched, valid on either side) observation slots of two pose
     solves' inputs: a slot selected on one side only, or whose landmark or
-    observation differs; every slot where the initial pose or the schedule
-    differs."""
-    moved = not all(_same(a.get(k), b.get(k)) for k in ("R0", "t0", "rounds", "iters"))
+    observation differs; every slot where the initial pose (exactly, or
+    beyond ``pose0_tol``) or the schedule differs."""
+    moved = not (_same_pose(a, b, pose0_tol) and all(_same(a.get(k), b.get(k)) for k in ("rounds", "iters")))
     bad = total = 0
     for valid, fields in (("valid", ("points_w", "obs_uvur", "octave")),
                           ("line_valid", ("line_start_w", "line_end_w", "line_obs"))):
@@ -296,8 +340,9 @@ class SolveReplay:
     result is returned; a call the side did not make is solved plainly
     and counts every slot it selects as mismatched."""
 
-    def __init__(self, calls):
+    def __init__(self, calls, pose0_tol: float = 0.0):
         self.calls, self.i, self.bad, self.total = calls, 0, 0, 0
+        self.pose0_tol = pose0_tol
 
     def __call__(self, *args, **kwargs):
         kw = _bind(ref_pose_opt.pose_optimize, args, kwargs)
@@ -307,7 +352,7 @@ class SolveReplay:
             return ref_pose_opt.pose_optimize(**kw)
         call = self.calls[self.i]
         self.i += 1
-        b, n = solve_mismatch(call["args"], kw)
+        b, n = solve_mismatch(call["args"], kw, self.pose0_tol)
         self.bad, self.total = self.bad + b, self.total + n
         return ref_pose_opt.PoseOptResult(*call["result"])
 
@@ -337,12 +382,13 @@ def track_out_mismatch(a, b) -> tuple[int, int]:
     return bad, total + 1
 
 
-def track_mismatch(side: dict, args: dict, frame, lf, cfg) -> tuple[int, int]:
+def track_mismatch(side: dict, args: dict, frame, lf, cfg, pose0_tol: float = 0.0) -> tuple[int, int]:
     """(mismatched, total) slots of one tracking step of ``side`` (its
     TrackOut and its pose solves in order) against the reference's step on
     ``args`` (the program's state before the step) with the reference's
-    ``frame`` and ``lf``, the solves replayed from ``side``."""
-    replay = SolveReplay(side["solves"])
+    ``frame`` and ``lf``, the solves replayed from ``side`` (their initial
+    poses compared exactly, or to ``pose0_tol``)."""
+    replay = SolveReplay(side["solves"], pose0_tol)
     with torch.no_grad():
         out = ref_track.track_step(**step_inputs(args, frame, lf, cfg), solve=replay)
     b, n = track_out_mismatch(side["out"], out)
@@ -466,10 +512,13 @@ def _layer_numbers(cap, frames, cfg, device, produce) -> dict:
             out["line_mismatch"] = bad / max(total, 1)
         if cap.steps:
             bad = total = 0
+            on, tol = getattr(cap, "step_frames", None), getattr(cap, "pose0_tol", 0.0)
             for i, step in cap.steps:
-                lf = line_ref(i) if step["args"]["has_lines"] else None
-                side = produce("track", (step, point_ref(i), lf))
-                b, n = track_mismatch(side, step["args"], point_ref(i), lf, cfg)
+                lines = step["args"]["has_lines"]
+                frame, lf = on[i] if on else (point_ref(i), line_ref(i) if lines else None)
+                lf = lf if lines else None
+                side = produce("track", (step, frame, lf))
+                b, n = track_mismatch(side, step["args"], frame, lf, cfg, tol)
                 bad, total = bad + b, total + n
             out["track_match_mismatch"] = bad / max(total, 1)
         paths = [call for call in cap.pose if call["path"] in SOLVE_PATHS]

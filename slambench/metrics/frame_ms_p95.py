@@ -1,5 +1,7 @@
-"""95th percentile of the host ms around System.track_stereo over every
-frame of the (untraced) window; the call returns the pose as a host array."""
+"""95th percentile of the host ms around the driver's call over every call
+of the (untraced) window: System.track_stereo, which returns the pose as a
+host array, or a multi-sequence step's process_stereo, whose latency is
+each of its frames'."""
 
 import numpy as np
 

@@ -1,6 +1,6 @@
-"""Host ms a keyframe of the loop closer's per-keyframe call on the tracking
-thread (vocabulary training on the first keyframes included), over the
-window's keyframes."""
+"""Host ms a keyframe of the loop closer's per-keyframe call on the thread
+that tracks its sequence (vocabulary training on the first keyframes
+included), over the window's keyframes."""
 
 
 def read(run):

@@ -1,5 +1,7 @@
-"""Host ms a window frame spent in the local (or joint) BA calls on the
-tracking thread: upload, solve and the result fetched."""
+"""Host ms a window frame spent in the local (or joint) BA calls: upload,
+solve and the result fetched; on the tracking thread (stereo driver), or
+on each sequence's mapping worker, off the step's path (multi-sequence
+driver)."""
 
 
 def read(run):

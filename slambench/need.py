@@ -76,22 +76,26 @@ def describe_need(h: int, w: int, axy: torch.Tensor, valid: torch.Tensor) -> tup
 
 def pose_solve_need(tensors, rounds: int, iters: int, masks) -> tuple[int, int]:
     """(bytes, float32 operations) one pose-solve launch needs: ``tensors``
-    are the solve's 11 tensor arguments (R0, t0, points, obs, p_info,
-    valid, line start, line end, line obs, l_info, l_valid) of one solve;
-    ``masks`` the (point, line) inlier masks each round starts from
-    (round 0: the valid masks).  Each input is read once and each output
-    written once; the operations of POSE_FLOP over the rows each round
-    visits."""
+    are the launch's 11 tensor arguments (R0, t0, points, obs, p_info,
+    valid, line start, line end, line obs, l_info, l_valid), of one solve
+    or, with a leading [B] on each, of B solves; ``masks`` the (point,
+    line) inlier masks each round starts from (round 0: the valid masks),
+    with the same leading dimensions.  Each input is read once and each
+    output written once; the operations of POSE_FLOP over the rows each
+    round visits, and each solve's own terms (its outputs, an LM
+    iteration's solve, the line gate) once a solve."""
     M, L = tensors[2].shape[-2], tensors[6].shape[-2]
-    n_bytes = sum(x.numel() * x.element_size() for x in tensors) + (36 + 12 + M + L + 4 + rounds * iters)
+    solves = tensors[0].numel() // 9
+    n_bytes = sum(x.numel() * x.element_size() for x in tensors) + solves * (36 + 12 + M + L + 4 + rounds * iters)
     stereo = tensors[3][..., 2] > 0
     f = POSE_FLOP
     ops = 0
     for p_in, l_in in masks:
         n_st, n_mo, n_l = int((p_in & stereo).sum()), int((p_in & ~stereo).sum()), int(l_in.sum())
         ops += iters * (n_st * (f["pass1_stereo"] + f["pass2_stereo"]) + n_mo * (f["pass1_mono"] + f["pass2_mono"])
-                        + n_l * (f["line_pass1"] + f["line_pass2"]) + f["iteration"])
-        ops += int(stereo.sum()) * f["gate_stereo"] + int((~stereo).sum()) * f["gate_mono"] + L * f["line_gate"]
+                        + n_l * (f["line_pass1"] + f["line_pass2"]) + solves * f["iteration"])
+        ops += (int(stereo.sum()) * f["gate_stereo"] + int((~stereo).sum()) * f["gate_mono"]
+                + solves * L * f["line_gate"])
     return n_bytes, ops
 
 

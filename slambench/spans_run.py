@@ -15,7 +15,7 @@ process:
    profiler): the frames/s of each;
 3. ``--traces N`` windows over the traffic's traced frames, each on a
    fresh System with its tracer on under a torch.profiler, beside the
-   benchmark's own layer ranges (``harness.Probes``): the device's idle
+   benchmark's own layer ranges (``drivers/stereo.py::Probes``): the device's idle
    gaps, blocking CUDA calls and kernel launches by the program's span,
    the metrics of ``metrics/`` that read them, and their agreement with
    the benchmark's own labels in the same trace.
@@ -38,6 +38,7 @@ from types import SimpleNamespace  # noqa: E402
 sys.path[0] = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 from slambench import devtrace, harness, spans  # noqa: E402
+from slambench.drivers import stereo  # noqa: E402
 
 UNITS = {"point_frontend_idle_ms": "ms/frame", "line_frontend_idle_ms": "ms/frame", "track_step_idle_ms": "ms/frame",
          "host_syncs_per_frame": "calls/frame", "warmup_frames_s": "s"}
@@ -47,7 +48,7 @@ def replay(prog, cfg, cell, frames, device, tracer_on):
     """A fresh System over ``frames``, its tracer on or off; returns
     (System, frames/s)."""
     dt = 1.0 / float(cell["config"]["fps"])
-    slam = harness.make_system(prog.System, cfg, cell["traffic"], bool(cell["config"]["loop_closing"]), device)
+    slam = stereo.make_system(prog.System, cfg, cell["traffic"], bool(cell["config"]["loop_closing"]), device)
     if tracer_on:
         slam.tracer.enable()
     t0 = time.perf_counter()
@@ -68,9 +69,9 @@ def traced_window(prog, cfg, cell, frames, device, sync, warmup_frames):
     dt = 1.0 / float(config["fps"])
     length = int(traffic["trace"]["frames"])
     start = int(traffic["trace"]["start_frac"] * len(frames))
-    slam = harness.make_system(prog.System, cfg, traffic, bool(config["loop_closing"]), device)
+    slam = stereo.make_system(prog.System, cfg, traffic, bool(config["loop_closing"]), device)
     slam.tracer.enable()
-    probes = harness.Probes()
+    probes = stereo.Probes()
     with probes:
         for i, (left, right) in enumerate(frames[:start + length]):
             if i == start:
@@ -90,11 +91,11 @@ def traced_window(prog, cfg, cell, frames, device, sync, warmup_frames):
     del slam
     torch.cuda.empty_cache()
 
-    recs, host, launch_total = devtrace.read_events(prof, harness.RANGE_TAGS)
+    recs, host, launch_total = devtrace.read_events(prof, stereo.RANGE_TAGS)
     program, syncs, launches = spans.read_events(prof)
     trace_start_ns = prof.profiler.kineto_results.trace_start_ns()
     annotations = sum(r.name.startswith(spans.PREFIX) for r in recs)   # the spans' device side
-    ops = [r for r in recs if r.name not in harness.RANGE_TAGS
+    ops = [r for r in recs if r.name not in stereo.RANGE_TAGS
            and not r.name.startswith(("ProfilerStep", spans.PREFIX))]
     busy = devtrace.busy_intervals(ops)
     lo, hi = min(a for a, _ in busy), max(b for _, b in busy)
@@ -102,7 +103,7 @@ def traced_window(prog, cfg, cell, frames, device, sync, warmup_frames):
     idle_us = sum(b - a for a, b in gaps)
     labels = {}
     for a, b in gaps:   # the benchmark's own labels: the range open at the gap's end
-        tag = devtrace.host_label(b, host, harness.RANGE_TAGS)
+        tag = devtrace.host_label(b, host, stereo.RANGE_TAGS)
         labels[tag] = labels.get(tag, 0.0) + (b - a) / 1e6
     sw = spans.window(program, syncs, launches, gaps, length)
     run = SimpleNamespace(trace=SimpleNamespace(frames=length, slam=sw), lines=bool(config["lines"]["enabled"]),

@@ -12,7 +12,7 @@ SEED = 2**31 + 301
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["kitti_stereo.seq", "euroc_stereo.seq"])
+@pytest.mark.parametrize("name", ["kitti_stereo.seq", "euroc_stereo.seq", "kitti_stereo.multiseq8"])
 def test_the_control_fails_the_limits(name):
     import torch
 

@@ -13,8 +13,9 @@ BENCH = Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
 FORBIDDEN = {"jax", "jaxlib", "flax", "orb_line_slam_tpu"}
 PROGRAM = "orb_line_slam_tpu_torch"
-# Modules that drive the program; everything else (the reference, the
-# renderer, the metric arithmetic and readers) imports none of it.
+# Modules that drive the program (and the drivers/ folder); everything else
+# (the reference, the renderer, the checks, the metric arithmetic and
+# readers) imports none of it.
 DRIVERS = {"harness.py", "calibrate.py"}
 
 
@@ -45,7 +46,7 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_reference_and_yardstick_import_nothing_of_the_program():
     for path in sources():
         rel = path.relative_to(BENCH)
-        if rel.name in DRIVERS or rel.parts[0] == "tests":
+        if rel.name in DRIVERS or rel.parts[0] in ("tests", "drivers"):
             continue
         assert PROGRAM not in imported_top_levels(path), f"{rel} imports the program"
 

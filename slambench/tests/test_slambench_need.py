@@ -94,3 +94,24 @@ def test_pose_solve_bound_of_the_point_cell():
     assert len(masks) == 4 and masks[0][0] is args[5]
     assert abs(ops - 18_962_496) / 18_962_496 < 0.015
     assert round(need.least_seconds(n_bytes, ops) * 1e6, 2) in (0.28, 0.27)
+
+
+def test_a_batched_launch_needs_b_times_one_solve():
+    """One launch of B identical solves (a leading [B] on every tensor and
+    mask, as the vmapped tracking step launches them) needs exactly B
+    times one solve, with and without lines; a single solve's count is
+    the one above."""
+    for L in (0, 16):
+        one = list(ref_pose_opt.solve_args(*pose_problem(KITTI, 901, 500, 0), KITTI, 1.2))
+        if L:
+            g = torch.Generator().manual_seed(5)
+            one[6:11] = [torch.rand(L, 3, generator=g), torch.rand(L, 3, generator=g) + 1,
+                         torch.rand(L, 3, generator=g), torch.ones(L), torch.rand(L, generator=g) < 0.7]
+        masks = []
+        ref_pose_opt.pose_solve_plain(*one, 4, 10, round_masks=masks)
+        single = need.pose_solve_need(one[:11], 4, 10, masks)
+        for B in (1, 3, 8):
+            batched = [x.expand(B, *x.shape).contiguous() for x in one[:11]]
+            bmasks = [tuple(m.expand(B, *m.shape) for m in pair) for pair in masks]
+            n_bytes, ops = need.pose_solve_need(batched, 4, 10, bmasks)
+            assert (n_bytes, ops) == (B * single[0], B * single[1]), (L, B)

@@ -8,6 +8,7 @@ from types import SimpleNamespace
 import numpy as np
 
 from slambench import harness
+from slambench.drivers import stereo
 
 
 class FakeSystem:
@@ -39,7 +40,7 @@ def replay(seconds, stall=(), stall_s=0.0):
     prog = SimpleNamespace(System=FakeSystem)
     cell = {"config": {"fps": 10.0, "loop_closing": True}, "traffic": {"schedule": "pinned"}}
     frames = [(None, None)] * 20
-    window_s, frame_ms, passes, failed = harness.replay(prog, None, cell, [frames], harness.Probes(), seconds, "cpu")
+    window_s, frame_ms, passes, failed = stereo.replay(prog, None, cell, [frames], stereo.Probes(), seconds, "cpu")
     run = SimpleNamespace(tracked=len(frame_ms) - failed, window_s=window_s, frame_ms=frame_ms, passes=len(passes))
     return run, passes
 

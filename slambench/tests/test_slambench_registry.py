@@ -21,6 +21,10 @@ def test_every_cell_config_traffic_and_metric_is_found_by_name():
     for w in SPEC["workloads"]:
         cell = harness.load_cell(w["name"])
         assert cell["config"]["name"] == w["config"] and cell["traffic"] is not None
+        driver = harness.load_driver(cell["traffic"])
+        assert all(callable(getattr(driver, f)) for f in ("make_probes", "replay", "traced_pass", "worst_ate"))
+        assert all(callable(c.install) and callable(c.numbers) for c in harness.load_checks(cell))
+        assert callable(harness.load_trajectory(cell["config"]["trajectory"]["kind"]))
         assert json.loads((ROOT / "slambench" / "cells" / f"{w['name']}.json").read_text())["traffic"] == w["traffic"]
         for trace in (False, True):
             for m in harness.cell_metrics(SPEC, w["name"], trace):
@@ -31,6 +35,8 @@ def test_every_cell_config_traffic_and_metric_is_found_by_name():
 
 
 def test_a_cell_and_a_metric_added_as_files_are_found(tmp_path, monkeypatch):
+    """A configuration, a trajectory kind, a traffic mix, a driver, a check,
+    a cell and a metric, each added as a file, are found by name."""
     bench = tmp_path / "slambench"
     shutil.copytree(ROOT / "slambench", bench, ignore=shutil.ignore_patterns("__pycache__", "tests", "ref"))
     cell = json.loads((bench / "cells" / "kitti_stereo.seq.json").read_text())
@@ -44,6 +50,41 @@ def test_a_cell_and_a_metric_added_as_files_are_found(tmp_path, monkeypatch):
     assert harness.load_metric("passes")(type("Run", (), {"passes": 3})) == 3
     with pytest.raises(FileNotFoundError):
         harness.load_cell("kitti_stereo.nothing")
+    # A traffic file without a driver runs the stereo driver.
+    assert harness.load_driver(got["traffic"]).CALL == "frame"
+
+    # A mono deployment as files only: a configuration on a new trajectory
+    # kind, a traffic mix naming a new driver, a cell listing a new check.
+    config = json.loads((bench / "configs" / "kitti_stereo.json").read_text())
+    (bench / "configs" / "mono_kitti.json").write_text(json.dumps(
+        {**config, "name": "mono_kitti", "trajectory": {"kind": "spiral", "step_m": 0.5}}))
+    (bench / "trajectories" / "spiral.py").write_text(
+        "import numpy as np\n\n\ndef poses(n_frames, spec):\n"
+        "    return [(np.eye(3), np.array([0.0, 0.0, -spec['step_m'] * i])) for i in range(n_frames)]\n")
+    (bench / "drivers" / "mono.py").write_text(
+        "CALL = 'frame'\n\n\ndef frames_per_call(cell):\n    return 1\n")
+    (bench / "checks" / "mono_init.py").write_text(
+        "def install(probes, cell, seed):\n    probes.installed = seed\n\n\n"
+        "def numbers(probes, ctx, control=False):\n    return {'init_frame_gap': 0}\n")
+    (bench / "traffic" / "mono_seq.json").write_text(json.dumps(
+        {**json.loads((bench / "traffic" / "seq.json").read_text()), "driver": "mono"}))
+    (bench / "cells" / "mono_kitti.mono_seq.json").write_text(json.dumps(
+        {**cell, "config": "mono_kitti", "traffic": "mono_seq", "checks": ["mono_init"],
+         "limits": {"init_frame_gap": 0}}))
+    got = harness.load_cell("mono_kitti.mono_seq")
+    assert harness.load_driver(got["traffic"]).frames_per_call(got) == 1
+    poses = harness.load_trajectory(got["config"]["trajectory"]["kind"])(4, got["config"]["trajectory"])
+    assert len(poses) == 4 and poses[3][1][2] == -1.5
+    (check_mod,) = harness.load_checks(got)
+    probes = type("Probes", (), {})()
+    check_mod.install(probes, got, 7)
+    assert probes.installed == 7 and check_mod.numbers(probes, None) == {"init_frame_gap": 0}
+    # Without the run's frames_not_tracked the cell's limits are not all read: not correct.
+    assert harness.decide(check_mod.numbers(probes, None), harness.cell_limits(got))[0] is False
+    with pytest.raises(FileNotFoundError):
+        harness.load_driver({"driver": "nothing"})
+    with pytest.raises(FileNotFoundError):
+        harness.load_checks({"checks": ["nothing"]})
 
 
 def test_cell_metrics_follow_their_workloads_lists():

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from slambench import check, harness
+from slambench.drivers import stereo
 
 SEED = 2**31 + 11
 
@@ -34,11 +35,34 @@ def test_every_noise_draw_tracks_to_the_end_of_a_pass_on_the_cpu(name):
     for k, frames in enumerate(sequences):
         assert len(frames) == n
         t0 = time.perf_counter()
-        with harness.Probes() as probes:
-            _, frame_ms, passes, failed = harness.replay(prog, cfg, cell, [frames], probes, 0.0, "cpu",
-                                                         whole_passes=True)
+        with stereo.Probes() as probes:
+            _, frame_ms, passes, failed = stereo.replay(prog, cfg, cell, [frames], probes, 0.0, "cpu",
+                                                        whole_passes=True)
         ate = check.worst_ate(passes, gt)
         print(f"{name}, noise draw {k}: {len(frame_ms)} frames in {time.perf_counter() - t0:.1f} s on the CPU, "
               f"{failed} not tracked, ATE {ate:.5f} m")
         assert len(passes) == 1 and len(passes[0]) == n
         assert failed == 0
+
+
+def solve_args(seed=5, n=64):
+    g = torch.Generator().manual_seed(seed)
+    R0 = torch.linalg.qr(torch.randn(3, 3, generator=g))[0].contiguous()
+    return {"R0": R0, "t0": torch.randn(3, generator=g), "points_w": torch.randn(n, 3, generator=g),
+            "obs_uvur": 600 * torch.rand(n, 3, generator=g), "octave": torch.randint(0, 8, (n,), generator=g),
+            "valid": torch.rand(n, generator=g) < 0.8, "rounds": 4, "iters": 10}
+
+
+@pytest.mark.parametrize("entry", ["R0", "t0"])
+def test_an_initial_pose_one_ulp_apart_counts_every_slot_unless_the_capture_sets_a_tolerance(entry):
+    """The stereo cells compare a solve's initial pose bit for bit; only a
+    capture that sets ``pose0_tol`` (the batched step's) lets it move."""
+    a = solve_args()
+    b = dict(a, **{entry: a[entry].clone()})
+    b[entry].view(-1)[0] = torch.nextafter(b[entry].view(-1)[0], torch.tensor(2.0))
+    n = int(a["valid"].sum())
+    assert check.solve_mismatch(a, dict(a)) == (0, n)
+    assert check.solve_mismatch(a, b) == (n, n)
+    assert check.solve_mismatch(a, b, check.POSE0_TOL) == (0, n)
+    far = dict(a, **{entry: a[entry] + 1e-3})
+    assert check.solve_mismatch(a, far, check.POSE0_TOL) == (n, n)
